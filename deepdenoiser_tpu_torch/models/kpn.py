@@ -1,0 +1,97 @@
+"""Kernel-predicting head (upstream: TensorFlow/KernelPrediction.py —
+SURVEY.md C14).
+
+The port of deepdenoiser_tpu/models/kpn.py. The backbone emits per-pixel
+k×k filter logits; an fp32 softmax makes them a convex combination of the
+noisy neighbours, and the filter is applied to the noisy signal, one
+3-channel slot at a time.
+
+`apply_per_pixel_kernels` here is the plain PyTorch version of the filter
+apply. The head calls ops/kpn_apply.py's wrapper, which launches the CUDA
+kernel for tensors on the card and runs this plain version for tensors on
+the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from deepdenoiser_tpu_torch.ops import kpn_apply
+
+Tensor = torch.Tensor
+
+
+def apply_per_pixel_kernels(noisy: Tensor, weights: Tensor, kernel_size: int) -> Tensor:
+    """Filter `noisy` (N,H,W,C) with per-pixel weights (N,H,W,k*k), one
+    spatial kernel shared across channels: a static k² shift-accumulate
+    over the zero-padded plane in fp32, taps in the order t = dy*k + dx."""
+    n, h, w, c = noisy.shape
+    k = kernel_size
+    if tuple(weights.shape) != (n, h, w, k * k):
+        raise ValueError(f"weights {tuple(weights.shape)} != {(n, h, w, k * k)}")
+    p = k // 2
+    padded = F.pad(noisy.float(), (0, 0, p, p, p, p))
+    wf = weights.float()
+    out = torch.zeros((n, h, w, c), dtype=torch.float32, device=noisy.device)
+    for dy in range(k):
+        for dx in range(k):
+            t = dy * k + dx
+            out = out + padded[:, dy : dy + h, dx : dx + w, :] * wf[..., t : t + 1]
+    return out
+
+
+class KernelPredictionHead(nn.Module):
+    """Backbone features → softmax k×k kernels → filtered signal.
+
+    `logit_norm`: RMS-normalize the logits over the kernel axis and scale
+    by a bounded learned temperature τ = 16·sigmoid(kernel_temp) before
+    the softmax (the JAX package's round-3 stability fix).
+
+    `filter_apply` is the filter apply; it defaults to the dispatching
+    wrapper (kernel on the card, plain version on the CPU).
+    """
+
+    TEMP_MAX = 16.0
+    TEMP_INIT = 3.0
+
+    def __init__(self, kernel_size: int = 5, n_slots: int = 1, logit_norm: bool = False):
+        super().__init__()
+        self.kernel_size, self.n_slots, self.logit_norm = kernel_size, n_slots, logit_norm
+        self.filter_apply: Callable[[Tensor, Tensor, int], Tensor] = (
+            kpn_apply.apply_per_pixel_kernels
+        )
+        if logit_norm:
+            t0 = math.log(self.TEMP_INIT / (self.TEMP_MAX - self.TEMP_INIT))
+            self.kernel_temp = nn.Parameter(torch.full((n_slots,), t0))
+
+    def forward(self, feats: Tensor, signal: Tensor) -> Tensor:
+        """feats (N,H,W,n_slots*k²) logits, signal (N,H,W,3*n_slots)
+        -> (N,H,W,3*n_slots) fp32."""
+        k2 = self.kernel_size**2
+        if feats.shape[-1] != self.n_slots * k2:
+            raise ValueError(f"backbone must emit {self.n_slots * k2} channels, got {feats.shape[-1]}")
+        if signal.shape[-1] != 3 * self.n_slots:
+            raise ValueError(f"signal must have {3 * self.n_slots} channels, got {signal.shape[-1]}")
+        if self.logit_norm:
+            taus = self.TEMP_MAX * torch.sigmoid(self.kernel_temp.float())
+        outs = []
+        for s in range(self.n_slots):
+            # planar (N, k², H, W) logits: the softmax reduces over a
+            # contiguous-per-tap axis, and the kernel's weight reads
+            # (neighbouring x) are coalesced
+            logits = feats[..., s * k2 : (s + 1) * k2].permute(0, 3, 1, 2).to(
+                torch.float32, memory_format=torch.contiguous_format
+            )
+            if self.logit_norm:
+                rms = torch.sqrt(torch.mean(logits * logits, dim=1, keepdim=True) + 1e-8)
+                logits = logits / rms * taus[s]
+            weights = torch.softmax(logits, dim=1).permute(0, 2, 3, 1)
+            outs.append(
+                self.filter_apply(signal[..., 3 * s : 3 * (s + 1)].float(), weights, self.kernel_size)
+            )
+        return torch.cat(outs, dim=-1)
