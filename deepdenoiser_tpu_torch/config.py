@@ -1,33 +1,54 @@
-"""Typed dataclass configs and the presets this slice of the port runs.
+"""Typed dataclass configs with JSON round-trip, and the presets the port
+runs.
 
-The port of deepdenoiser_tpu/config.py for inference: `InferenceConfig`
-(and `models.factory.ModelConfig`) keep every JAX field name, and
-`DataConfig` the ones inference reads, so the same values describe the
-same experiment in both packages. Presets: the joint-mode stride-1 UNet family — `kpn-hq`
-(8-slot 5x5 KPN head), `flagship-hq` and `flagship-mc` (residual).
-Training configs are not ported yet.
+The port of deepdenoiser_tpu/config.py for inference. `ModelConfig`
+(models/factory.py), `DataConfig` and `InferenceConfig` keep every JAX
+field name and default, so the same values describe the same experiment in
+both packages and a JSON saved by either loads in the other. Training is
+not ported yet: `ExperimentConfig.train` holds that section as a plain
+dict, read by nothing here. Presets: `flagship-max` and `kpn` (group-mode
+2-slot KPN), `kpn-hq` (joint 8-slot KPN), `flagship-hq` and `flagship-mc`
+(joint residual, stride-1 stem), `flagship` (joint residual,
+space-to-depth stem) and `unet-small`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import json
+from pathlib import Path
+from typing import Any, Dict, Tuple, Type, TypeVar, get_args, get_origin, get_type_hints
 
 from deepdenoiser_tpu_torch import transforms
 from deepdenoiser_tpu_torch.models.factory import ModelConfig
 from deepdenoiser_tpu_torch.passes import AUX_PASSES, LIGHT_GROUPS
 
+T = TypeVar("T")
+
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """The input settings inference reads (same names and defaults as the
-    JAX package's DataConfig; its loader and training fields come with the
-    loader slice)."""
+    """Input pipeline settings (same names and defaults as the JAX
+    package's DataConfig). Inference reads `groups`, `mode`, `use_flags`
+    and `pass_scales`; the loader and training fields are carried so
+    configs round-trip, and come into use with the loader slice."""
 
+    shard_dir: str = "data/shards"
+    crop: int = 64
+    crops_per_frame: int = 64
+    batch_size: int = 32
     groups: Tuple[str, ...] = LIGHT_GROUPS
-    mode: str = "group"  # 'group' | 'joint' | 'rgb'
+    mode: str = "group"  # 'group' (per-group) | 'joint' (all groups, one pass) | 'rgb'
+    group: str = "diffuse"  # which group a 'group'-mode model trains on
     use_flags: bool = False
+    stats_normalize: bool = False
     pass_scales: Tuple[Tuple[str, float], ...] = ()
+    augment: bool = True
+    shuffle_buffer: int = 2048
+    validation_fraction: float = 0.1
+    seed: int = 0
+    read_threads: int = 0
+    prefetch_batches: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +68,9 @@ class InferenceConfig:
     border: int = -1
     compute_dtype: str = "bfloat16"
     spatial_shard: bool = False
+    # Group mode: encode with the fused ingest kernels (ops/fused_ingest.py)
+    # instead of transforms.encode_group_inputs. The field keeps the JAX
+    # package's name so configs load in both packages.
     use_pallas_ingest: bool = False
     # Kept so configs load in both packages. On the card the KPN filter
     # apply is always the CUDA kernel; on the CPU its plain version.
@@ -58,7 +82,50 @@ class ExperimentConfig:
     name: str = "default"
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    # the JAX package's TrainConfig section, kept as it was loaded
+    train: Dict[str, Any] = dataclasses.field(default_factory=dict)
     infer: InferenceConfig = dataclasses.field(default_factory=InferenceConfig)
+
+
+# ---------------------------------------------------------------------------
+# Generic dataclass <-> JSON
+# ---------------------------------------------------------------------------
+
+
+def to_dict(cfg: Any) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)
+
+
+def _from_dict(cls: Type[T], d: Any) -> T:
+    if not dataclasses.is_dataclass(cls):
+        origin = get_origin(cls)
+        if origin is tuple or cls is tuple:
+            args = get_args(cls)
+            if args and args[-1] is Ellipsis:
+                return tuple(_from_dict(args[0], v) for v in d)  # type: ignore
+            return tuple(d)  # type: ignore
+        return d  # primitives and plain dicts pass through
+    hints = get_type_hints(cls)
+    fields = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for key, val in d.items():
+        if key not in fields:
+            raise KeyError(f"{cls.__name__}: unknown config key {key!r}")
+        kwargs[key] = _from_dict(hints[key], val)
+    return cls(**kwargs)  # type: ignore
+
+
+def from_dict(cls: Type[T], d: Dict[str, Any]) -> T:
+    return _from_dict(cls, d)
+
+
+def save(cfg: Any, path: str | Path) -> None:
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(json.dumps(to_dict(cfg), indent=2) + "\n")
+
+
+def load(path: str | Path, cls: Type[T] = ExperimentConfig) -> T:
+    return from_dict(cls, json.loads(Path(path).read_text()))
 
 
 def _unet64(**kw) -> ModelConfig:
@@ -68,12 +135,27 @@ def _unet64(**kw) -> ModelConfig:
     )
 
 
+_EMA = {"ema_decay": 0.999}  # the JAX presets' one non-default training value
+
 PRESETS: Dict[str, ExperimentConfig] = {
+    # joint 4-group single pass, space-to-depth stem, base width 96
+    "flagship": ExperimentConfig(
+        name="flagship",
+        model=ModelConfig(
+            backbone="unet", base_width=96, depth=3, convs_per_level=2,
+            stem_stride=2, compute_dtype="bfloat16", predict_residual=True,
+            act="leaky_relu",
+        ),
+        data=DataConfig(mode="joint"),
+        train=dict(_EMA),
+        infer=InferenceConfig(border=32),
+    ),
     # stride-1 UNet, base width 64, depth 3, residual prediction
     "flagship-hq": ExperimentConfig(
         name="flagship-hq",
         model=_unet64(predict_residual=True),
         data=DataConfig(mode="joint"),
+        train=dict(_EMA),
         infer=InferenceConfig(border=32),
     ),
     # the same architecture, weights fine-tuned on Monte-Carlo-traced noise
@@ -81,7 +163,37 @@ PRESETS: Dict[str, ExperimentConfig] = {
         name="flagship-mc",
         model=_unet64(predict_residual=True),
         data=DataConfig(mode="joint"),
+        train=dict(_EMA),
         infer=InferenceConfig(border=32),
+    ),
+    # kernel prediction in group mode: a 2-slot 5x5 KPN head on a base-48
+    # UNet, applied to each light group
+    "flagship-max": ExperimentConfig(
+        name="flagship-max",
+        model=ModelConfig(
+            backbone="unet", base_width=48, depth=3, convs_per_level=2,
+            kernel_prediction=True, kpn_size=5, kpn_slots=2,
+            kpn_logit_norm=True,
+            compute_dtype="bfloat16", act="leaky_relu",
+        ),
+        data=DataConfig(mode="group"),
+        train=dict(_EMA),
+        infer=InferenceConfig(border=32),
+    ),
+    "unet-small": ExperimentConfig(
+        name="unet-small",
+        model=ModelConfig(backbone="unet", base_width=32, depth=3, n_scales=1),
+    ),
+    # flagship-max's model with the certified halo as the border
+    "kpn": ExperimentConfig(
+        name="kpn",
+        model=ModelConfig(
+            backbone="unet", base_width=48, depth=3, kernel_prediction=True,
+            kpn_size=5, kpn_slots=2, kpn_logit_norm=True,
+            compute_dtype="bfloat16", act="leaky_relu",
+        ),
+        data=DataConfig(mode="group"),
+        train=dict(_EMA),
     ),
     # the flagship-hq backbone with an 8-slot 5x5 kernel-prediction head
     "kpn-hq": ExperimentConfig(
@@ -89,27 +201,41 @@ PRESETS: Dict[str, ExperimentConfig] = {
         model=_unet64(kernel_prediction=True, kpn_size=5, kpn_slots=8,
                       kpn_logit_norm=True),
         data=DataConfig(mode="joint"),
+        train=dict(_EMA),
         infer=InferenceConfig(border=32),
     ),
 }
 
 
-def input_channels(data: DataConfig) -> int:
-    if data.mode != "joint":
-        raise NotImplementedError(f"mode {data.mode!r} is not ported yet (joint only)")
-    n = transforms.joint_input_channels(tuple(data.groups), AUX_PASSES)
-    return n + (len(data.groups) if data.use_flags else 0)
+def input_channels(data: DataConfig, aux: Tuple[str, ...] = AUX_PASSES) -> int:
+    """Channels of the encoded network input for the data mode (rgb mode
+    takes no alpha)."""
+    if data.use_flags and data.mode != "joint":
+        raise ValueError("use_flags requires mode='joint'")
+    if data.mode == "group":
+        return transforms.group_input_channels(tuple(aux))
+    if data.mode == "joint":
+        n = transforms.joint_input_channels(tuple(data.groups), tuple(aux))
+        return n + (len(data.groups) if data.use_flags else 0)
+    if data.mode == "rgb":
+        return transforms.rgb_input_channels(tuple(a for a in aux if a != "alpha"))
+    raise ValueError(f"unknown data mode {data.mode!r}")
 
 
 def output_channels(data: DataConfig) -> int:
-    if data.mode != "joint":
-        raise NotImplementedError(f"mode {data.mode!r} is not ported yet (joint only)")
-    return transforms.joint_output_channels(tuple(data.groups))
+    if data.mode == "group":
+        return transforms.GROUP_OUTPUT_CHANNELS
+    if data.mode == "joint":
+        return transforms.joint_output_channels(tuple(data.groups))
+    if data.mode == "rgb":
+        return 3
+    raise ValueError(f"unknown data mode {data.mode!r}")
 
 
 def validate_channels(cfg: ExperimentConfig) -> ExperimentConfig:
-    """Set the model's channel counts from the data mode (joint: 41 in,
-    24 out), as the JAX training loop's _validate_channels does."""
+    """Set the model's channel counts from the data mode (group 14 in / 6
+    out, joint 41 / 24, rgb 10 / 3), as the JAX training loop's
+    _validate_channels does."""
     want_in, want_out = input_channels(cfg.data), output_channels(cfg.data)
     m = cfg.model
     if m.in_channels != want_in or m.out_channels != want_out:

@@ -1,23 +1,28 @@
-"""Full-frame joint-group denoising pipeline on the card.
+"""Full-frame multi-pass denoising pipeline on the card.
 
-The port of deepdenoiser_tpu/inference/pipeline.py's joint mode
-(make_joint_frame_denoiser), whole-frame:
+The port of deepdenoiser_tpu/inference/pipeline.py, whole-frame:
 
-  encode all light groups into one 41-channel NHWC stack
-  → reflect-pad to the padded plane → DenoiserModel (UNet + KPN head or
-  residual) → crop → expm1 / remodulate → recompose
-  Σ color⊙(direct+indirect) + emission + environment.
+  joint  encode all light groups into one 41-channel NHWC stack → reflect-pad
+         to the padded plane → DenoiserModel → crop → expm1 / remodulate
+  group  encode each light group into its own 14-channel stack, all groups
+         as one (G, H, W, 14) batch → pad → one DenoiserModel call → crop →
+         decode per group
+  rgb    noisy combined + albedo + aux → pad → DenoiserModel → crop → expm1
 
-PyTorch runs eagerly, so the factory builds the model once, loads the
-weights onto the device and returns a callable on a pass dict. The KPN
-filter apply follows the tensors: on the card it is the CUDA kernel
-(ops/kpn_apply.py), on the CPU its plain version.
+and, for joint and group, recompose Σ color⊙(direct+indirect) + emission +
+environment on the device.
+
+PyTorch runs eagerly, so each factory builds the model once, loads the
+weights onto the device and returns a callable on a pass dict. The kernels
+follow the tensors: on the card the KPN filter apply (ops/kpn_apply.py)
+and, with InferenceConfig.use_pallas_ingest, the group encode
+(ops/fused_ingest.py) are CUDA kernels; on the CPU their plain versions.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Sequence, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -27,6 +32,7 @@ from deepdenoiser_tpu_torch.config import InferenceConfig
 from deepdenoiser_tpu_torch.inference import tiled
 from deepdenoiser_tpu_torch.models import factory
 from deepdenoiser_tpu_torch.models.factory import ModelConfig
+from deepdenoiser_tpu_torch.ops import fused_ingest
 
 Tensor = torch.Tensor
 
@@ -44,6 +50,43 @@ def plan_for(
     )
 
 
+def _to_device(pass_dict: Mapping[str, Any], device: torch.device) -> Dict[str, Tensor]:
+    return {
+        k: torch.as_tensor(v, dtype=torch.float32, device=device)
+        for k, v in pass_dict.items()
+    }
+
+
+def _with_passthrough(out: Dict[str, Tensor], pd: Mapping[str, Tensor],
+                      groups: Sequence[str]) -> Dict[str, Tensor]:
+    """Add the passes carried through unchanged and the recomposed frame."""
+    for extra in passes.COMPOSITE_EXTRA + ("alpha",):
+        if extra in pd:
+            out[extra] = pd[extra]
+    out["combined"] = transforms.recompose(out, groups)
+    return out
+
+
+def _load_model(model_cfg: ModelConfig, infer_cfg: InferenceConfig, height: int, width: int,
+                params: Mapping[str, Any], device, mesh=None,
+                ) -> Tuple[factory.DenoiserModel, tiled.TileGrid, torch.device]:
+    """What every frame factory shares: refuse what is not ported, resolve
+    the device (the card, or raise), plan the plane, build the model in the
+    inference dtype and load `params` onto the device."""
+    if infer_cfg.spatial_shard or mesh is not None:
+        raise NotImplementedError("spatial sharding is not ported yet")
+    if infer_cfg.tile or infer_cfg.tile_batch or infer_cfg.stitch != "exact":
+        raise NotImplementedError("tiled inference is not ported yet (tile=0 only)")
+    dev = device_lib.resolve(device)
+    grid = plan_for(model_cfg, infer_cfg, height, width)
+    model = factory.build_model(
+        dataclasses.replace(model_cfg, compute_dtype=infer_cfg.compute_dtype)
+    )
+    weights_io.load_into(model, params)
+    model.to(dev).eval()
+    return model, grid, dev
+
+
 class JointFrameDenoiser:
     """{pass_name: (H, W, C)} -> denoised '<g>_direct' / '<g>_indirect' per
     group, the color passes, emission / environment / alpha passed through,
@@ -57,10 +100,7 @@ class JointFrameDenoiser:
 
     @torch.inference_mode()
     def __call__(self, pass_dict: Mapping[str, Any]) -> Dict[str, Tensor]:
-        pd = {
-            k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
-            for k, v in pass_dict.items()
-        }
+        pd = _to_device(pass_dict, self.device)
         enc = transforms.encode_joint_inputs(pd, self.groups, self.aux, scales=self.scales)
         dec = tiled.whole_frame_reference(self.model, enc, self.grid)
         decoded = transforms.decode_joint_outputs(dec, pd, self.groups, scales=self.scales)
@@ -70,11 +110,7 @@ class JointFrameDenoiser:
             out[d_name] = decoded[d_name]
             out[i_name] = decoded[i_name]
             out[c_name] = pd[c_name]
-        for extra in passes.COMPOSITE_EXTRA + ("alpha",):
-            if extra in pd:
-                out[extra] = pd[extra]
-        out["combined"] = transforms.recompose(out, self.groups)
-        return out
+        return _with_passthrough(out, pd, self.groups)
 
 
 def make_joint_frame_denoiser(
@@ -97,15 +133,139 @@ def make_joint_frame_denoiser(
     """
     if use_flags:
         raise NotImplementedError("use_flags (flag-conditioned models) is not ported yet")
-    if infer_cfg.spatial_shard:
-        raise NotImplementedError("spatial sharding is not ported yet")
-    if infer_cfg.tile or infer_cfg.tile_batch or infer_cfg.stitch != "exact":
-        raise NotImplementedError("tiled inference is not ported yet (tile=0 only)")
+    model, grid, dev = _load_model(model_cfg, infer_cfg, height, width, params, device)
+    return JointFrameDenoiser(model, grid, groups, aux, dev, scales), grid
+
+
+class GroupFrameDenoiser:
+    """{pass_name: (H, W, C)} -> the joint denoiser's output dict, with each
+    light group denoised by the same per-group network: the G encoded
+    groups run as one (G, H, W, C) batch.
+
+    `fused`: encode with ops/fused_ingest.py (on the card its CUDA kernels
+    write each group's channels straight into the batch) instead of
+    transforms.encode_group_inputs. The kernels bake the unscaled
+    transforms, so with `scales` the plain encoder runs either way, as in
+    the JAX pipeline."""
+
+    def __init__(self, model: factory.DenoiserModel, grid: tiled.TileGrid,
+                 groups: Sequence[str], aux: Sequence[str], device: torch.device,
+                 scales: Optional[Mapping[str, float]], fused: bool):
+        self.model, self.grid, self.device = model, grid, device
+        self.groups, self.aux, self.scales = tuple(groups), tuple(aux), scales
+        self.fused = fused and not scales
+        self.frame_fn = tiled.make_tiled_apply(
+            model, grid, transforms.GROUP_OUTPUT_CHANNELS, batch_dims=1
+        )
+
+    def encode(self, pd: Mapping[str, Tensor]) -> Tensor:
+        """(G, H, W, 9 + aux channels): every group's network input."""
+        if not self.fused:
+            return torch.stack([
+                transforms.encode_group_inputs(pd, g, self.aux, scales=self.scales)
+                for g in self.groups
+            ], 0)
+        h, w = self.grid.height, self.grid.width
+        enc = torch.empty(
+            (len(self.groups), h, w, transforms.group_input_channels(self.aux)),
+            dtype=torch.float32, device=self.device,
+        )
+        for i, g in enumerate(self.groups):
+            fused_ingest.encode_group_inputs_fused(pd, g, self.aux, out=enc[i])
+        return enc
+
+    @torch.inference_mode()
+    def __call__(self, pass_dict: Mapping[str, Any]) -> Dict[str, Tensor]:
+        pd = _to_device(pass_dict, self.device)
+        dec = self.frame_fn(self.encode(pd))  # (G, H, W, 6) log-demod direct+indirect
+        out: Dict[str, Tensor] = {}
+        for i, g in enumerate(self.groups):
+            d_name, i_name, c_name = passes.group_passes(g)
+            decoded = transforms.decode_group_outputs(dec[i], pd[c_name], scales=self.scales)
+            out[d_name] = decoded["direct"]
+            out[i_name] = decoded["indirect"]
+            out[c_name] = pd[c_name]
+        return _with_passthrough(out, pd, self.groups)
+
+
+def make_group_frame_denoiser(
+    model_cfg: ModelConfig,
+    infer_cfg: InferenceConfig,
+    height: int,
+    width: int,
+    params: Mapping[str, Any],
+    groups: Sequence[str] = passes.LIGHT_GROUPS,
+    aux: Sequence[str] = passes.AUX_PASSES,
+    device: Optional[Union[str, torch.device]] = None,
+    mesh=None,
+    scales: Optional[Mapping[str, float]] = None,
+):
+    """Group mode: one per-group network applied to every light group, the
+    groups batched into one pass. Same output dict as the joint denoiser.
+
+    infer_cfg.use_pallas_ingest keeps the JAX package's meaning: true →
+    the fused ingest kernels (ops/fused_ingest.encode_group_inputs_fused),
+    false → transforms.encode_group_inputs. With stats-driven `scales` the
+    plain encoder runs even if the flag is set, because the kernels bake
+    the unscaled transforms. Runs on "cuda" unless `device` says otherwise;
+    raises when there is no card. Returns (denoiser, grid).
+    """
+    model, grid, dev = _load_model(model_cfg, infer_cfg, height, width, params, device, mesh)
+    return GroupFrameDenoiser(model, grid, groups, aux, dev, scales,
+                              fused=infer_cfg.use_pallas_ingest), grid
+
+
+class RgbFrameDenoiser:
+    """{'combined', albedo, aux passes: (H, W, C)} -> {'combined': denoised}."""
+
+    def __init__(self, model: factory.DenoiserModel, grid: tiled.TileGrid,
+                 aux: Sequence[str], albedo_key: str, device: torch.device,
+                 scales: Optional[Mapping[str, float]]):
+        self.model, self.grid, self.device = model, grid, device
+        self.aux, self.albedo_key, self.scales = tuple(aux), albedo_key, scales
+        self.frame_fn = tiled.make_tiled_apply(model, grid, 3)
+
+    @torch.inference_mode()
+    def __call__(self, pass_dict: Mapping[str, Any]) -> Dict[str, Tensor]:
+        pd = _to_device(pass_dict, self.device)
+        enc = transforms.encode_rgb_inputs(pd, self.aux, self.albedo_key, scales=self.scales)
+        return {"combined": transforms.decode_rgb_outputs(self.frame_fn(enc), self.scales)}
+
+
+def make_rgb_frame_denoiser(
+    model_cfg: ModelConfig,
+    infer_cfg: InferenceConfig,
+    height: int,
+    width: int,
+    params: Mapping[str, Any],
+    aux: Sequence[str] = ("normal", "depth"),
+    albedo_key: str = "diffuse_color",
+    device: Optional[Union[str, torch.device]] = None,
+    scales: Optional[Mapping[str, float]] = None,
+):
+    """Combined-RGB mode at frame scale: noisy combined + albedo + aux ->
+    denoised combined. Runs on "cuda" unless `device` says otherwise;
+    raises when there is no card. Returns (denoiser, grid)."""
+    model, grid, dev = _load_model(model_cfg, infer_cfg, height, width, params, device)
+    return RgbFrameDenoiser(model, grid, aux, albedo_key, dev, scales), grid
+
+
+@torch.inference_mode()
+def denoise_crop(
+    model_cfg: ModelConfig,
+    params: Mapping[str, Any],
+    pass_dict: Mapping[str, Any],
+    aux: Sequence[str] = ("normal", "depth"),
+    albedo_key: str = "diffuse_color",
+    device: Optional[Union[str, torch.device]] = None,
+) -> Tensor:
+    """Single-crop RGB denoise, no padding (the crop must be divisible by
+    the model's spatial multiple), in the model's own compute dtype. Runs
+    on "cuda" unless `device` says otherwise."""
     dev = device_lib.resolve(device)
-    grid = plan_for(model_cfg, infer_cfg, height, width)
-    model = factory.build_model(
-        dataclasses.replace(model_cfg, compute_dtype=infer_cfg.compute_dtype)
-    )
+    model = factory.build_model(model_cfg)
     weights_io.load_into(model, params)
     model.to(dev).eval()
-    return JointFrameDenoiser(model, grid, groups, aux, dev, scales), grid
+    pd = _to_device(pass_dict, dev)
+    enc = transforms.encode_rgb_inputs(pd, tuple(aux), albedo_key)[None]
+    return transforms.decode_rgb_outputs(model(enc)[0])

@@ -3,9 +3,10 @@ spatial multiple).
 
 The port of deepdenoiser_tpu/models/factory.py. `ModelConfig` keeps the
 JAX field names, so a config JSON loads in both packages. Ported here: the
-UNet backbone with a stride-1 stem, the joint-mode KPN head (24 output
-channels, 8 slots) and the residual branch. The tiramisu backbone,
-multi-scale models and group- or rgb-mode KPN raise NotImplementedError.
+UNet backbone (stride-1 or space-to-depth stem), the KPN head in joint
+mode (24 output channels, 8 slots) and in group or rgb mode (the leading
+3*kpn_slots input channels are the signal), and the residual branch. The
+tiramisu backbone and multi-scale models raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -63,8 +64,6 @@ def _check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"backbone {cfg.backbone!r} is not ported yet")
     if cfg.n_scales > 1:
         raise NotImplementedError("multi-scale models are not ported yet")
-    if cfg.kernel_prediction and cfg.out_channels != 24:
-        raise NotImplementedError("only joint-mode (24-channel) KPN is ported yet")
 
 
 class DenoiserModel(nn.Module):
@@ -83,7 +82,7 @@ class DenoiserModel(nn.Module):
         spec = _backbone_spec(cfg)
         self.UNet_0 = UNet(spec, cfg.in_channels, out_ch, dtype=cfg.dtype)
         if cfg.kernel_prediction:
-            if 3 * cfg.kpn_slots != cfg.out_channels:
+            if cfg.out_channels == 24 and 3 * cfg.kpn_slots != cfg.out_channels:
                 raise ValueError(
                     f"joint KPN needs kpn_slots={cfg.out_channels // 3}, got {cfg.kpn_slots}"
                 )
@@ -96,9 +95,15 @@ class DenoiserModel(nn.Module):
         x = x.contiguous()  # the signal slices below need channel stride 1
         out = self.UNet_0(x)
         if cfg.kernel_prediction:
-            # KPN filters the encoded (log-demod) signal channels, slot
-            # order g0_d, g0_i, g1_d, ... as decode_joint_outputs expects.
-            return self.KernelPredictionHead_0(out, _slice_signal(cfg, x))
+            # KPN filters the encoded (log-demod) signal channels. Joint
+            # mode: slot order g0_d, g0_i, g1_d, ... as decode_joint_outputs
+            # expects. Group and rgb mode: the leading 3*kpn_slots channels
+            # (the convention of encode_group_inputs / encode_rgb_inputs).
+            if cfg.out_channels == 24:
+                signal = _slice_signal(cfg, x)
+            else:
+                signal = x[..., : 3 * cfg.kpn_slots]
+            return self.KernelPredictionHead_0(out, signal)
         if cfg.predict_residual:
             out = out + _slice_signal(cfg, x).to(out.dtype)
         return out

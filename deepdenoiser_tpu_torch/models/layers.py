@@ -17,6 +17,12 @@ Three details carry the JAX semantics across:
 The JAX UpSample is a sub-pixel conv at low resolution; nearest-up(2)
 then a 3x3 SAME conv with the same kernel is the same function, and that
 is the form used here.
+
+space_to_depth / depth_to_space are NHWC like the JAX functions and keep
+their channel order, (dy*f + dx)*C + c, which is not F.pixel_unshuffle's
+(c*f*f + dy*f + dx): the release stem and head kernels of the stride-2
+models assume it. They are a reshape and a permute; the JAX package's
+one-hot-conv form is a TPU layout device and is not carried over.
 """
 
 from __future__ import annotations
@@ -204,3 +210,27 @@ class UpSample(nn.Module):
         x = F.interpolate(x.to(self.ConvBlock_0.dtype), scale_factor=self.factor,
                           mode="nearest")
         return self.ConvBlock_0(x)
+
+
+def space_to_depth(x: Tensor, factor: int = 2) -> Tensor:
+    """NHWC (N, H, W, C) -> (N, H/f, W/f, f*f*C), as the JAX package's:
+    output channel (dy*f + dx)*C + c holds input pixel (y*f + dy, x*f + dx)
+    of channel c. The UNet applies it at its NHWC edge, so the result's
+    NCHW view is already in channels_last memory."""
+    n, h, w, c = x.shape
+    f = factor
+    if h % f or w % f:
+        raise ValueError(f"space_to_depth: {h}x{w} is not divisible by {f}")
+    x = x.reshape(n, h // f, f, w // f, f, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h // f, w // f, f * f * c)
+
+
+def depth_to_space(x: Tensor, factor: int = 2) -> Tensor:
+    """Inverse of space_to_depth: NHWC (N, H, W, f*f*C) -> (N, H*f, W*f, C)."""
+    n, h, w, c = x.shape
+    f = factor
+    if c % (f * f):
+        raise ValueError(f"depth_to_space: {c} channels are not divisible by {f * f}")
+    co = c // (f * f)
+    x = x.reshape(n, h, w, f, f, co)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h * f, w * f, co)

@@ -4,7 +4,10 @@ The port of deepdenoiser_tpu/models/unet.py: encoder/decoder with skip
 connections, stride-2 conv down, resize-conv up, a linear 1x1 head whose
 output is cast to fp32. Takes and returns NHWC; inside, the activations
 live in channels_last memory, so the NHWC input and output are views and
-the convs run on cuDNN's NHWC path. Only the stride-1 stem is ported.
+the convs run on cuDNN's NHWC path. With stem_stride=2 the input goes
+through space_to_depth first, the whole network runs at half resolution,
+the head emits 4x the output channels and depth_to_space restores the
+frame.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ class UNetSpec:
     act: str = "relu"
     width_growth: float = 2.0  # channel multiplier per level
     max_width: int = 512
-    stem_stride: int = 1  # 2 = space-to-depth stem (not ported yet)
+    stem_stride: int = 1  # 2 = space-to-depth stem (half-resolution network)
     remat: bool = False  # training-memory option of the JAX package
 
     def width(self, level: int) -> int:
@@ -66,15 +69,13 @@ class UNet(nn.Module):
     def __init__(self, spec: UNetSpec, in_channels: int, out_channels: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if spec.stem_stride != 1:
-            raise NotImplementedError(
-                "the space-to-depth stem (stem_stride=2) is not ported yet"
-            )
+        if spec.stem_stride not in (1, 2):
+            raise ValueError(f"stem_stride must be 1 or 2, got {spec.stem_stride}")
         self.spec, self.dtype = spec, dtype
         kw = dict(kernel=spec.kernel, act=spec.act, dtype=dtype)
         n = spec.convs_per_level
         widths = [spec.width(level) for level in range(spec.depth + 1)]
-        stacks = [layers.ConvStack(in_channels, widths[0], n, **kw)]
+        stacks = [layers.ConvStack(in_channels * spec.stem_stride**2, widths[0], n, **kw)]
         for level in range(1, spec.depth + 1):
             self.add_module(
                 f"DownSample_{level - 1}",
@@ -91,7 +92,7 @@ class UNet(nn.Module):
             prev = widths[level]
         for i, s in enumerate(stacks):
             self.add_module(f"ConvStack_{i}", s)
-        self.Conv_0 = nn.Conv2d(prev, out_channels, 1)
+        self.Conv_0 = nn.Conv2d(prev, out_channels * spec.stem_stride**2, 1)
 
     def forward(self, x: Tensor) -> Tensor:
         spec = self.spec
@@ -99,8 +100,11 @@ class UNet(nn.Module):
         m = spec.spatial_multiple
         if h % m or w % m:
             raise ValueError(f"UNet input {h}x{w} must be divisible by {m}; pad first")
+        x = x.to(self.dtype)
+        if spec.stem_stride == 2:
+            x = layers.space_to_depth(x, 2)
         # NHWC -> NCHW view with channels_last strides (no copy when dense)
-        x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous(memory_format=torch.channels_last)
+        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         x = self.ConvStack_0(x)
         skips = []
         for level in range(1, spec.depth + 1):
@@ -111,4 +115,7 @@ class UNet(nn.Module):
             x = getattr(self, f"UpSample_{i}")(x)
             x = getattr(self, f"ConvStack_{spec.depth + 1 + i}")((x, skips[level]))
         out = F.conv2d(x, self.Conv_0.weight.to(self.dtype), self.Conv_0.bias.to(self.dtype))
-        return out.float().permute(0, 2, 3, 1)
+        out = out.permute(0, 2, 3, 1)
+        if spec.stem_stride == 2:
+            out = layers.depth_to_space(out, 2)
+        return out.float()

@@ -1,0 +1,288 @@
+"""Fused ingest: the wrappers of csrc/fused_ingest.cu.
+
+Replaces the five TPU kernels of deepdenoiser_tpu/ops/fused_ingest.py
+(_radiance_kernel, _aux_kernel, _depth_alpha_kernel, _depth_kernel,
+_alpha_kernel) and their assembler encode_group_inputs_pallas. The group
+frame launches them once per light group when
+InferenceConfig.use_pallas_ingest is set. All five are memory-bound
+elementwise passes; the design note is in the CUDA source.
+
+The public functions keep the JAX names and take HWC or NHWC fp32 tensors:
+
+    encode_radiance(direct, indirect, color) -> (enc_direct, enc_indirect)
+    encode_normal(normal), encode_depth(depth), encode_alpha(alpha)
+    encode_depth_alpha(depth, alpha) -> (enc_depth, enc_alpha)
+    encode_group_inputs_fused(pass_dict, group, aux) -> (..., H, W, 9 + aux)
+
+Each returns fresh tensors, or with `out=` writes into views the caller
+gives — channel ranges of a preallocated network input, say — which is how
+encode_group_inputs_fused assembles its stack without a concatenation.
+
+Tensors on the CPU go to the plain versions below (the per-pass
+transforms.normalize / demodulate) and count no launch; tensors on the
+card launch the kernel or raise — there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Mapping, Optional, Sequence, Tuple
+
+import torch
+
+from deepdenoiser_tpu_torch import passes, transforms
+from deepdenoiser_tpu_torch.ops import _build
+
+Tensor = torch.Tensor
+
+# kernel name -> (C entry point, inputs, outputs, takes eps)
+_KERNELS = {
+    "radiance": ("fused_radiance_f32", 3, 2, True),
+    "normal": ("fused_normal_f32", 1, 1, False),
+    "depth_alpha": ("fused_depth_alpha_f32", 2, 2, False),
+    "depth": ("fused_depth_f32", 1, 1, False),
+    "alpha": ("fused_alpha_f32", 1, 1, False),
+}
+
+# Launches of each CUDA kernel since the last reset (plain counts; a
+# wrapper adds one where it launches and nowhere else).
+launches: Dict[str, int] = {name: 0 for name in _KERNELS}
+
+_fns: Dict[str, object] = {}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        symbol, n_in, n_out, has_eps = _KERNELS[name]
+        fn = getattr(_build.load("fused_ingest"), symbol)
+        n = n_in + n_out
+        fn.argtypes = (
+            [ctypes.c_void_p] * n + [ctypes.c_longlong, ctypes.c_int]
+            + [ctypes.c_longlong] * (2 * n)
+            + ([ctypes.c_float] if has_eps else []) + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+# --------------------------------------------------------------------------
+# plain versions (CPU tensors; the card's yardstick in chip_smoke.py)
+# --------------------------------------------------------------------------
+
+
+def encode_radiance_plain(direct: Tensor, indirect: Tensor, color: Tensor) -> Tuple[Tensor, Tensor]:
+    return (
+        transforms.normalize("diffuse_direct", transforms.demodulate(direct, color)),
+        transforms.normalize("diffuse_indirect", transforms.demodulate(indirect, color)),
+    )
+
+
+def encode_normal_plain(normal: Tensor) -> Tensor:
+    return transforms.normalize("normal", normal)
+
+
+def encode_depth_plain(depth: Tensor) -> Tensor:
+    return transforms.normalize("depth", depth)
+
+
+def encode_alpha_plain(alpha: Tensor) -> Tensor:
+    return transforms.normalize("alpha", alpha)
+
+
+def encode_depth_alpha_plain(depth: Tensor, alpha: Tensor) -> Tuple[Tensor, Tensor]:
+    return encode_depth_plain(depth), encode_alpha_plain(alpha)
+
+
+_PLAIN = {
+    "radiance": encode_radiance_plain,
+    "normal": lambda x: (encode_normal_plain(x),),
+    "depth_alpha": encode_depth_alpha_plain,
+    "depth": lambda x: (encode_depth_plain(x),),
+    "alpha": lambda x: (encode_alpha_plain(x),),
+}
+
+
+# --------------------------------------------------------------------------
+# launcher
+# --------------------------------------------------------------------------
+
+
+def _pixel_view(t: Tensor) -> Optional[Tuple[int, int]]:
+    """(pixel stride, channel stride) in elements if the (..., C) tensor is
+    a uniform (pixels, C) view — its leading dims collapse to one stride —
+    else None. A dense tensor gives (C, 1); a channel range of a wider
+    stack gives (the stack's channel count, 1)."""
+    c = t.shape[-1]
+    cs = t.stride(-1) if c > 1 else 1
+    dims = [(s, st) for s, st in zip(t.shape[:-1], t.stride()[:-1]) if s > 1]
+    if cs < 0 or any(st < 0 for _, st in dims):
+        return None
+    for (_, st_outer), (s_inner, st_inner) in zip(dims, dims[1:]):
+        if st_outer != st_inner * s_inner:
+            return None
+    return (dims[-1][1] if dims else c * cs), cs
+
+
+def _check(name: str, tensors: Sequence[Tensor], what: str) -> None:
+    first = tensors[0]
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_ingest.{name}: fp32 only, got {t.dtype} for an {what}")
+        if t.device != first.device:
+            raise ValueError(f"fused_ingest.{name}: tensors on {first.device} and {t.device}")
+        if tuple(t.shape) != tuple(first.shape):
+            raise ValueError(
+                f"fused_ingest.{name}: shapes {tuple(first.shape)} and {tuple(t.shape)} differ"
+            )
+
+
+def _run(name: str, inputs: Sequence[Tensor], out: Optional[Sequence[Tensor]],
+         plain_on_cpu: bool = True) -> Tuple[Tensor, ...]:
+    """Plain version for CPU tensors, the CUDA kernel for tensors on the
+    card. `out`: one view per output to write into, else fresh tensors."""
+    n_out = _KERNELS[name][2]
+    _check(name, inputs, "input")
+    first = inputs[0]
+    if first.dim() not in (3, 4):
+        raise ValueError(f"fused_ingest.{name}: HWC or NHWC, got {tuple(first.shape)}")
+    if out is not None:
+        out = tuple(out)
+        if len(out) != n_out:
+            raise ValueError(f"fused_ingest.{name}: {n_out} output view(s), got {len(out)}")
+        _check(name, (first, *out), "output")
+    if first.device.type == "cpu" and plain_on_cpu:
+        res = _PLAIN[name](*inputs)
+        if out is None:
+            return tuple(res)
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return out
+    return _launch(name, inputs, out)
+
+
+def _launch(name: str, inputs: Sequence[Tensor], out: Optional[Tuple[Tensor, ...]]) -> Tuple[Tensor, ...]:
+    _, _, n_out, has_eps = _KERNELS[name]
+    first = inputs[0]
+    if first.device.type != "cuda":
+        raise ValueError(f"fused_ingest.{name}: tensors on {first.device}, need a CUDA device")
+    c = first.shape[-1]
+    ins, in_strides = [], []
+    for t in inputs:
+        pv = _pixel_view(t)
+        if pv is None:  # rows or columns sliced: one dense copy of this input
+            t = t.contiguous()
+            pv = (c, 1)
+        ins.append(t)
+        in_strides.append(pv)
+    if out is None:
+        out = tuple(torch.empty_like(first, memory_format=torch.contiguous_format)
+                    for _ in range(n_out))
+    out_strides = []
+    for o in out:
+        pv = _pixel_view(o)
+        if pv is None or pv[1] < 1 or pv[0] < c * pv[1]:
+            raise ValueError(
+                f"fused_ingest.{name}: output view with strides {o.stride()} is not a "
+                "uniform (pixels, channels) view"
+            )
+        out_strides.append(pv)
+    if first.numel() == 0:
+        return out
+    args = [t.data_ptr() for t in (*ins, *out)]
+    args += [first.numel() // c, c]
+    for ps, cs in (*in_strides, *out_strides):
+        args += [ps, cs]
+    if has_eps:
+        args.append(transforms.DEMOD_EPS)
+    with torch.cuda.device(first.device):
+        args.append(torch.cuda.current_stream(first.device).cuda_stream)
+        err = _kernel(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"fused_ingest.{name}: kernel launch failed with cudaError {err}")
+    launches[name] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# public functions (the JAX names)
+# --------------------------------------------------------------------------
+
+
+def encode_radiance(direct: Tensor, indirect: Tensor, color: Tensor,
+                    out: Optional[Sequence[Tensor]] = None) -> Tuple[Tensor, Tensor]:
+    """log1p(demod(direct)), log1p(demod(indirect)) in one pass."""
+    return _run("radiance", (direct, indirect, color), out)
+
+
+def encode_normal(normal: Tensor, out: Optional[Tensor] = None) -> Tensor:
+    return _run("normal", (normal,), None if out is None else (out,))[0]
+
+
+def encode_depth_alpha(depth: Tensor, alpha: Tensor,
+                       out: Optional[Sequence[Tensor]] = None) -> Tuple[Tensor, Tensor]:
+    return _run("depth_alpha", (depth, alpha), out)
+
+
+def encode_depth(depth: Tensor, out: Optional[Tensor] = None) -> Tensor:
+    return _run("depth", (depth,), None if out is None else (out,))[0]
+
+
+def encode_alpha(alpha: Tensor, out: Optional[Tensor] = None) -> Tensor:
+    return _run("alpha", (alpha,), None if out is None else (out,))[0]
+
+
+def launch_cuda(name: str, *inputs: Tensor) -> Tuple[Tensor, ...]:
+    """The kernel entry itself: launch kernel `name` ('radiance', 'normal',
+    'depth_alpha', 'depth', 'alpha') on CUDA tensors; CPU tensors and other
+    dtypes raise."""
+    return _run(name, inputs, None, plain_on_cpu=False)
+
+
+def encode_group_inputs_fused(
+    pass_dict: Mapping[str, Tensor],
+    group: str,
+    aux: Sequence[str] = passes.AUX_PASSES,
+    out: Optional[Tensor] = None,
+) -> Tensor:
+    """The fused twin of transforms.encode_group_inputs (unscaled):
+    [log1p(demod direct), log1p(demod indirect), albedo, encoded aux...]
+    along channels. The kernels write straight into channel ranges of the
+    result (`out`, or a fresh tensor), so nothing is concatenated. Depth
+    and alpha share one launch only when both are asked for; either alone
+    takes its own kernel. An unknown aux name is a KeyError."""
+    d_name, i_name, c_name = passes.group_passes(group)
+    albedo = pass_dict[c_name]
+    for a in aux:
+        if a not in ("normal", "depth", "alpha"):
+            raise KeyError(f"unknown aux pass {a!r}")
+    n_ch = transforms.group_input_channels(tuple(aux))
+    shape = (*albedo.shape[:-1], n_ch)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=albedo.device)
+    elif tuple(out.shape) != shape:
+        raise ValueError(f"encode_group_inputs_fused: out {tuple(out.shape)} != {shape}")
+    encode_radiance(pass_dict[d_name], pass_dict[i_name], albedo,
+                    out=(out[..., 0:3], out[..., 3:6]))
+    out[..., 6:9].copy_(albedo)
+    at = {}
+    ch = 9
+    for a in aux:
+        at[a] = out[..., ch : ch + passes.channels(a)]
+        ch += passes.channels(a)
+    if "normal" in at:
+        encode_normal(pass_dict["normal"], out=at["normal"])
+    if "depth" in at and "alpha" in at:
+        encode_depth_alpha(pass_dict["depth"], pass_dict["alpha"],
+                           out=(at["depth"], at["alpha"]))
+    elif "depth" in at:
+        encode_depth(pass_dict["depth"], out=at["depth"])
+    elif "alpha" in at:
+        encode_alpha(pass_dict["alpha"], out=at["alpha"])
+    return out

@@ -1,11 +1,13 @@
-"""Per-pass normalization and its inverse, albedo demodulation, the joint
-network encoding and the recomposition algebra, on torch tensors.
+"""Per-pass normalization and its inverse, albedo demodulation, the group,
+joint and rgb network encodings and the recomposition algebra, on torch
+tensors.
 
 The port of deepdenoiser_tpu/transforms.py (upstream:
 TensorFlow/FeatureEngineering.py — SURVEY.md C4). Pass dicts hold
 (H, W, C) tensors and the encodings are NHWC, as in the JAX package, so
-tests/test_torch_transforms.py compares like with like. Pure elementwise
-PyTorch: no TPU kernel computes the joint encode.
+the tests compare like with like. Pure elementwise PyTorch: no TPU kernel
+computes the joint or rgb encode, and encode_group_inputs is the plain
+version of the fused group encode (ops/fused_ingest.py).
 """
 
 from __future__ import annotations
@@ -125,6 +127,38 @@ def recompose(
     return combined
 
 
+def encode_group_inputs(
+    pass_dict: Mapping[str, Tensor],
+    group: str,
+    aux: Sequence[str] = passes.AUX_PASSES,
+    eps: float = DEMOD_EPS,
+    scales: Optional[Mapping[str, float]] = None,
+) -> Tensor:
+    """The network input for one light group, stacked along channels:
+    [log1p(demod direct), log1p(demod indirect), albedo, normalized aux...].
+    `scales`: optional statistics-driven pre-scales, e.g. {'depth':
+    1/mean_depth}, and the exposure under RADIANCE_SCALE_KEY."""
+    d_name, i_name, c_name = passes.group_passes(group)
+    albedo = pass_dict[c_name]
+    ex = radiance_exposure(scales)
+    feats = [
+        _norm_radiance(ex * demodulate(pass_dict[d_name], albedo, eps)),
+        _norm_radiance(ex * demodulate(pass_dict[i_name], albedo, eps)),
+        albedo,
+    ]
+    for a in aux:
+        feats.append(normalize(a, pass_dict[a], _aux_scale(scales, a)))
+    return torch.cat(feats, dim=-1)
+
+
+def group_input_channels(aux: Sequence[str] = passes.AUX_PASSES) -> int:
+    """Channel count of encode_group_inputs' output."""
+    return 9 + sum(passes.channels(a) for a in aux)
+
+
+GROUP_OUTPUT_CHANNELS = 6  # denoised log-demod direct + indirect
+
+
 def decode_group_outputs(
     net_out: Tensor,
     albedo: Tensor,
@@ -192,3 +226,26 @@ def joint_input_channels(
 
 def joint_output_channels(groups: Sequence[str] = LIGHT_GROUPS) -> int:
     return 6 * len(groups)
+
+
+def encode_rgb_inputs(
+    pass_dict: Mapping[str, Tensor],
+    aux: Sequence[str] = ("normal", "depth"),
+    albedo_key: str = "diffuse_color",
+    scales: Optional[Mapping[str, float]] = None,
+) -> Tensor:
+    """Combined-RGB mode input: log noisy RGB + albedo + normalized aux."""
+    feats = [_norm_radiance(radiance_exposure(scales) * pass_dict["combined"]),
+             pass_dict[albedo_key]]
+    for a in aux:
+        feats.append(normalize(a, pass_dict[a], _aux_scale(scales, a)))
+    return torch.cat(feats, dim=-1)
+
+
+def decode_rgb_outputs(net_out: Tensor, scales: Optional[Mapping[str, float]] = None) -> Tensor:
+    """Inverse of the combined-RGB encoding: log radiance -> radiance."""
+    return _denorm_radiance(net_out) / radiance_exposure(scales)
+
+
+def rgb_input_channels(aux: Sequence[str] = ("normal", "depth")) -> int:
+    return 6 + sum(passes.channels(a) for a in aux)

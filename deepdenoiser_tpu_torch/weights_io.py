@@ -11,7 +11,8 @@ state_dict. The port's modules carry the Flax scope names (UNet_0,
 ConvStack_3, ConvBlock_1, Conv_0, ...), so a Flax path maps to a torch key
 by joining with '.': a conv `kernel` (HWIO) becomes `weight` (OIHW), a
 `bias` stays `bias`, and KernelPredictionHead_0/kernel_temp goes across as
-it is.
+it is. `params_from_state_dict` is the way back, for models initialised in
+the port.
 """
 
 from __future__ import annotations
@@ -70,6 +71,22 @@ def state_dict_from_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]
             raise ValueError(f"{path}: unknown parameter kind {leaf!r}")
         out[".".join(scope + [key])] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+def params_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of state_dict_from_params: a torch state_dict -> the
+    {'params': ...} tree of fp32 numpy arrays (HWIO conv kernels), the form
+    the frame factories take — for models initialised in the port."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, t in sd.items():
+        *scope, leaf = key.split(".")
+        arr = t.detach().float().cpu().numpy()
+        if leaf == "weight":
+            leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+        elif leaf not in ("bias", "kernel_temp"):
+            raise ValueError(f"{key}: unknown parameter kind {leaf!r}")
+        flat["/".join(scope + [leaf])] = np.ascontiguousarray(arr)
+    return {"params": unflatten(flat)}
 
 
 def load_into(module: torch.nn.Module, params: Mapping[str, Any]) -> None:

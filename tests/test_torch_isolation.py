@@ -19,6 +19,7 @@ import torch
 from deepdenoiser_tpu_torch import cli, config, device, weights_io
 from deepdenoiser_tpu_torch.data import exr, synthetic
 from deepdenoiser_tpu_torch.inference import pipeline
+from deepdenoiser_tpu_torch.models import factory
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "deepdenoiser_tpu_torch"
@@ -51,6 +52,7 @@ def _port_modules():
 def test_importing_every_port_module_leaves_jax_out():
     mods = _port_modules()
     assert "deepdenoiser_tpu_torch.ops.kpn_apply" in mods
+    assert "deepdenoiser_tpu_torch.ops.fused_ingest" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -63,6 +65,9 @@ def test_importing_every_port_module_leaves_jax_out():
     assert res.returncode == 0, res.stderr
     loaded = json.loads(res.stdout.strip().splitlines()[-1])
     assert "deepdenoiser_tpu_torch.ops.kpn_apply" in loaded
+    assert "deepdenoiser_tpu_torch.ops.fused_ingest" in loaded
+    # importing the port builds nothing and loads no compiler front end
+    assert "triton" not in loaded
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
 
@@ -103,11 +108,30 @@ def test_make_joint_frame_denoiser_without_device_raises(no_card):
         pipeline.make_joint_frame_denoiser(cfg.model, cfg.infer, 32, 48, params)
 
 
-def test_cli_without_device_raises(no_card, tmp_path):
+def test_make_group_frame_denoiser_without_device_raises(no_card):
+    cfg = config.validate_channels(config.PRESETS["flagship-max"])
+    params = weights_io.load_release_params(REPO / "weights" / "kpn_ema_f16.npz")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.make_group_frame_denoiser(cfg.model, cfg.infer, 32, 48, params)
+
+
+def test_make_rgb_frame_denoiser_and_denoise_crop_without_device_raise(no_card):
+    mcfg = factory.ModelConfig(in_channels=10, out_channels=3, base_width=32, depth=2,
+                               convs_per_level=1, act="leaky_relu", predict_residual=True)
+    params = weights_io.load_release_params(REPO / "weights" / "rgb_small_ema_f16.npz")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.make_rgb_frame_denoiser(mcfg, config.InferenceConfig(), 32, 48, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.denoise_crop(mcfg, params, {})
+
+
+@pytest.mark.parametrize("preset,weights", [
+    ("flagship-hq", "flagship_hq_ema_f16.npz"), ("flagship-max", "kpn_ema_f16.npz"),
+], ids=["joint", "group"])
+def test_cli_without_device_raises(no_card, tmp_path, preset, weights):
     clean = synthetic.generate_clean_passes(16, 24, seed=0)
     exr.save_frame_dir(tmp_path / "frame", synthetic.add_mc_noise(clean, spp=4, seed=1))
-    argv = ["denoise", "--preset", "flagship-hq",
-            "--weights", str(REPO / "weights" / "flagship_hq_ema_f16.npz"),
+    argv = ["denoise", "--preset", preset, "--weights", str(REPO / "weights" / weights),
             "--frame", str(tmp_path / "frame"), "--out", str(tmp_path / "out.exr")]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(argv)
@@ -130,9 +154,29 @@ def test_later_slice_options_raise_not_implemented(kw, match):
         pipeline.make_joint_frame_denoiser(cfg.model, infer, 32, 48, params, device="cpu", **kw)
 
 
-def test_group_and_rgb_modes_raise_not_implemented():
-    for mode in ("group", "rgb"):
-        data = dataclasses.replace(config.DataConfig(), mode=mode)
-        with pytest.raises(NotImplementedError, match="joint"):
-            config.input_channels(data)
-    assert config.input_channels(config.PRESETS["kpn-hq"].data) == 41
+@pytest.mark.parametrize("factory_fn,preset,weights", [
+    (pipeline.make_group_frame_denoiser, "flagship-max", "kpn_ema_f16.npz"),
+    (pipeline.make_rgb_frame_denoiser, None, "rgb_small_ema_f16.npz"),
+], ids=["group", "rgb"])
+@pytest.mark.parametrize("infer_kw,match", [
+    (dict(tile=64), "tiled"), (dict(stitch="feather"), "tiled"), (dict(spatial_shard=True), "spatial"),
+], ids=["tile", "feather", "spatial"])
+def test_group_and_rgb_later_slice_options_raise_not_implemented(
+        factory_fn, preset, weights, infer_kw, match):
+    if preset:
+        mcfg = config.validate_channels(config.PRESETS[preset]).model
+    else:
+        mcfg = factory.ModelConfig(in_channels=10, out_channels=3, base_width=32, depth=2,
+                                   convs_per_level=1, act="leaky_relu", predict_residual=True)
+    infer = dataclasses.replace(config.InferenceConfig(), **infer_kw)
+    params = weights_io.load_release_params(REPO / "weights" / weights)
+    with pytest.raises(NotImplementedError, match=match):
+        factory_fn(mcfg, infer, 32, 48, params, device="cpu")
+
+
+def test_group_frame_with_a_mesh_raises_not_implemented():
+    cfg = config.validate_channels(config.PRESETS["flagship-max"])
+    params = weights_io.load_release_params(REPO / "weights" / "kpn_ema_f16.npz")
+    with pytest.raises(NotImplementedError, match="spatial"):
+        pipeline.make_group_frame_denoiser(cfg.model, cfg.infer, 32, 48, params,
+                                           device="cpu", mesh=object())

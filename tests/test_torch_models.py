@@ -135,8 +135,6 @@ def test_receptive_field_and_spatial_multiple_match_jax(preset_kw):
 @pytest.mark.parametrize("kw,match", [
     (dict(backbone="tiramisu"), "tiramisu"),
     (dict(n_scales=2), "multi-scale"),
-    (dict(stem_stride=2), "stem"),
-    (dict(kernel_prediction=True, out_channels=6, kpn_slots=2), "joint"),
 ])
 def test_later_slices_raise_not_implemented(kw, match):
     with pytest.raises(NotImplementedError, match=match):
