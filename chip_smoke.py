@@ -12,20 +12,25 @@ non-zero:
   1. card        name, count, power limit; fails without a CUDA device
   2. build       nvcc every csrc/*.cu (ops/_build.py), ptxas report
   3. kernels     the KPN filter apply vs its plain version at the paths'
-                 shapes (max|d| <= 1e-5 + 1e-5*|ref|); the five fused-ingest
-                 kernels vs theirs at 1080p, batched and ragged shapes
-                 (1e-6 + 1e-6*|ref|) and the group encode for every aux
-                 subset; CUDA-event times, bytes, bound, torch.clamp's time
+                 shapes (max|d| <= 1e-5 + 1e-5*|ref|); the five per-pass
+                 fused-ingest kernels and the whole-pixel group encode vs
+                 theirs at 1080p, batched and ragged shapes, for every aux
+                 subset (1e-6 + 1e-6*|ref|); device times by CUDA-graph
+                 replay, bytes, bound, torch.clamp's time dense and into the
+                 same stack
   4. kpn-hq      joint 1080p frame: 8 KPN launches per frame, finite output,
                  PSNR gain > 0 and within 0.05 dB of the same frame in fp32
                  (TF32 off, plain filter apply), ms per frame
   5. flagship-hq the same path (no kernel of its own), gain and ms per frame
   6. flagship-max group 1080p frame through --config with the fused ingest:
-                 launches per frame (radiance 4, normal 4, depth_alpha 4, KPN
-                 2), gain vs fp32, fused encode == plain encode, ms per frame
-                 both ways
+                 launches per frame (group encode 1, KPN 2, no per-pass
+                 launch), gain vs fp32, fused encode == plain encode, ms per
+                 frame both ways
   7. aux subsets group frames with aux=(normal, depth) and (alpha,), random
-                 weights: the depth-only and alpha-only kernels on a path
+                 weights: the depth-only and alpha-only bodies on a frame
+                 path; then the frame's passes through the per-pass encode
+                 (encode_group_inputs_per_pass) for the three aux sets: every
+                 per-pass kernel launched, result == the one-launch encode
   8. rgb         combined-RGB model: cli --config, frame factory, denoise_crop
   9. flagship    joint frame with the space-to-depth stem, gain vs fp32
   10. one JSON line {"kernels": [...]}
@@ -68,6 +73,8 @@ FRAME_H, FRAME_W = 1080, 1920
 PLANE_H, PLANE_W = 1144, 1984  # the frame with its 32 px border, as the network sees it
 TIMED_FRAMES = 10
 AUX_SUBSETS = [(), ("depth",), ("alpha",), ("normal", "depth"), ("normal", "depth", "alpha")]
+LIGHT_GROUPS = ("diffuse", "glossy", "subsurface", "transmission")
+AUX_CHANNELS = {"normal": 3, "depth": 1, "alpha": 1}
 # the combined-RGB release model (weights/rgb_small_ema_f16.npz)
 RGB_SMALL = dict(backbone="unet", in_channels=10, out_channels=3, base_width=32, depth=2,
                  convs_per_level=1, act="leaky_relu", compute_dtype="bfloat16",
@@ -305,10 +312,10 @@ def phase_kernels(card: dict) -> dict:
     return {**timings["joint"], "group": timings["group"], "max_abs_err": worst}
 
 
-# The fused-ingest kernels: name -> (TPU kernel it replaces, passes it reads,
-# channels, elementwise operations per input pixel, and where
-# encode_group_inputs_fused points its outputs: (channels of the stack,
-# first channel of each output) on the group path that launches it).
+# The per-pass fused-ingest kernels: name -> (TPU kernel it replaces, passes
+# it reads, channels, elementwise operations per input pixel, and where
+# encode_group_inputs_per_pass points its outputs: (channels of the stack,
+# first channel of each output) for the aux set that launches it).
 INGEST_KERNELS = {
     "radiance": ("deepdenoiser_tpu/ops/fused_ingest.py:57",
                  ("diffuse_direct", "diffuse_indirect", "diffuse_color"), 3, 7 * 3, (14, (0, 3))),
@@ -320,18 +327,23 @@ INGEST_KERNELS = {
 }
 
 
-def _raw_passes(lead, gen):
-    """Raw passes on the card that reach every clamp: negative radiance,
-    albedo 0, normals x1.5, alpha outside [0, 1], negative depth."""
-    def rand(c, lo, hi):
-        return lo + (hi - lo) * torch.rand((*lead, c), generator=gen, device="cuda")
+def _raw_pass(name: str, lead, gen):
+    """One raw pass on the card in a range that reaches its clamps: negative
+    radiance, albedo 0 (a fifth of it), normals x1.5, alpha outside [0, 1],
+    negative depth."""
+    lo, hi = {"normal": (-1.5, 1.5), "depth": (-2.0, 30.0), "alpha": (-0.5, 1.5),
+              "direct": (-1.0, 20.0), "indirect": (-1.0, 5.0),
+              "color": (-0.2, 1.0)}[name.split("_")[-1]]
+    c = AUX_CHANNELS.get(name, 3)
+    x = lo + (hi - lo) * torch.rand((*lead, c), generator=gen, device="cuda")
+    return x.clamp_min(0.0) if name.endswith("_color") else x
 
-    pd = {"normal": rand(3, -1.5, 1.5), "depth": rand(1, -2.0, 30.0), "alpha": rand(1, -0.5, 1.5)}
-    for grp in ("diffuse", "glossy"):
-        pd[f"{grp}_direct"] = rand(3, -1.0, 20.0)
-        pd[f"{grp}_indirect"] = rand(3, -1.0, 5.0)
-        pd[f"{grp}_color"] = rand(3, -0.2, 1.0).clamp_min(0.0)  # a fifth exactly 0
-    return pd
+
+def _raw_passes(lead, gen):
+    """The aux passes and every light group's direct, indirect and albedo."""
+    names = [*AUX_CHANNELS, *(f"{g}_{part}" for g in LIGHT_GROUPS
+                              for part in ("direct", "indirect", "color"))]
+    return {name: _raw_pass(name, lead, gen) for name in names}
 
 
 def _ingest_err(what: str, got, ref) -> float:
@@ -342,11 +354,36 @@ def _ingest_err(what: str, got, ref) -> float:
     return float(err.max())
 
 
-def phase_ingest_kernels(card: dict) -> dict:
-    """The five fused-ingest kernels against their plain versions, the group
-    encode for every aux subset, and each kernel's time at the 1080p shape.
-    Returns name -> timing."""
+# The group encode: the TPU assembler it replaces, and the TPU kernels whose
+# bodies it runs on each frame path that launches it.
+GROUP_ENCODE_REPLACES = "deepdenoiser_tpu/ops/fused_ingest.py:153"
+GROUP_ENCODE_BODIES = {
+    "flagship-max": ["radiance", "normal", "depth_alpha"],
+    "aux normal+depth": ["radiance", "normal", "depth"],
+    "aux alpha": ["radiance", "alpha"],
+}
+
+
+def _plain_groups(pd, groups, aux):
     from deepdenoiser_tpu_torch import transforms
+
+    return torch.stack([transforms.encode_group_inputs(pd, g, aux) for g in groups], 0)
+
+
+def _per_pass_groups(pd, groups, aux, out):
+    """Every group through the per-pass kernels into its slice of `out`."""
+    from deepdenoiser_tpu_torch.ops import fused_ingest as fi
+
+    for i, g in enumerate(groups):
+        fi.encode_group_inputs_per_pass(pd, g, aux, out=out[i])
+    return out
+
+
+def phase_ingest_kernels(card: dict) -> dict:
+    """The five per-pass fused-ingest kernels and the whole-pixel group
+    encode against their plain versions, for every aux subset, and each
+    one's time at the 1080p shape. Returns name -> timing ("group_encode"
+    among the names)."""
     from deepdenoiser_tpu_torch.ops import fused_ingest as fi
 
     public = {"radiance": fi.encode_radiance, "normal": fi.encode_normal,
@@ -362,8 +399,10 @@ def phase_ingest_kernels(card: dict) -> dict:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    worst = {name: 0.0 for name in INGEST_KERNELS}
-    for lead in [(FRAME_H, FRAME_W), (2, 540, 960), (37, 53)]:
+    worst = {name: 0.0 for name in (*INGEST_KERNELS, "group_encode")}
+    # whole tiles, a batch, and two ragged shapes: 37*53 and 7*9 pixels are no
+    # multiple of the tile, so later groups start off the float4 grid
+    for lead in [(FRAME_H, FRAME_W), (2, 540, 960), (37, 53), (7, 9)]:
         pd = _raw_passes(lead, gen)
         for name, (_, passes_in, *_rest) in INGEST_KERNELS.items():
             inputs = [pd[p] for p in passes_in]
@@ -371,17 +410,25 @@ def phase_ingest_kernels(card: dict) -> dict:
             torch.cuda.synchronize()
             for g, r in zip(got, ref):
                 worst[name] = max(worst[name], _ingest_err(f"fused_ingest.{name} {lead}", g, r))
-        group_err = 0.0
+        per_pass_err = 0.0
         for aux in AUX_SUBSETS:
-            got = fi.encode_group_inputs_fused(pd, "glossy", aux)
-            ref = transforms.encode_group_inputs(pd, "glossy", aux)
+            ref = _plain_groups(pd, LIGHT_GROUPS, aux)
+            for groups, want in ((LIGHT_GROUPS, ref), (LIGHT_GROUPS[1:2], ref[1:2])):
+                got = fi.launch_group_cuda(pd, groups, aux)
+                torch.cuda.synchronize()
+                worst["group_encode"] = max(worst["group_encode"], _ingest_err(
+                    f"fused_ingest.group_encode {lead} {aux} x{len(groups)}", got, want))
+            got = fi.encode_group_inputs_per_pass(pd, "glossy", aux)
             torch.cuda.synchronize()
-            group_err = max(group_err, _ingest_err(f"encode_group_inputs_fused {lead} {aux}",
-                                                   got, ref))
+            per_pass_err = max(per_pass_err, _ingest_err(
+                f"encode_group_inputs_per_pass {lead} {aux}", got, ref[1]))
+            del ref, got, want
         log(f"[kernels] fused_ingest {lead}: max|d| "
             + ", ".join(f"{n} {e:.2e}" for n, e in worst.items())
-            + f"; group encode over {len(AUX_SUBSETS)} aux subsets {group_err:.2e}")
+            + f" (group encode: {len(AUX_SUBSETS)} aux subsets x 4 groups and 1 group); "
+            f"per-pass group encode {per_pass_err:.2e}")
         del pd
+    torch.cuda.empty_cache()
 
     # times at the 1080p shape, over buffer sets that together exceed the L2
     timings = {}
@@ -391,11 +438,10 @@ def phase_ingest_kernels(card: dict) -> dict:
         n_in, n_out = len(passes_in), len(firsts)
         nbytes = (n_in + n_out) * npix * c * 4  # each input read once, each output written once
         sets = max(2, min(16, math.ceil(4 * H100_L2_BYTES / nbytes)))
-        dense_calls, stack_calls, plain_calls, lib_calls = [], [], [], []
+        dense_calls, stack_calls, plain_calls, lib_calls, lib_stack_calls = [], [], [], [], []
         keep = []
         for _ in range(sets):
-            pd = _raw_passes(lead, gen)
-            inputs = [pd[p] for p in passes_in]
+            inputs = [_raw_pass(p, lead, gen) for p in passes_in]
             stack = torch.empty((*lead, stack_c), device="cuda")
             views = tuple(stack[..., f : f + c] for f in firsts)
             dense = tuple(torch.empty_like(inputs[0]) for _ in firsts)
@@ -405,13 +451,23 @@ def phase_ingest_kernels(card: dict) -> dict:
                     *i, out=o if len(o) > 1 else o[0]))
             plain_calls.append(lambda i=inputs: plain[name](*i))
             if name in clamp:
-                lib_calls.append(lambda i=inputs: torch.clamp(i[0], *clamp[name]))
-        # device time per launch (CUDA-graph replay), in turns: dense, stack, stack, dense
-        d1, s1 = graph_ms(dense_calls), graph_ms(stack_calls)
-        s2, d2 = graph_ms(stack_calls), graph_ms(dense_calls)
+                lib_calls.append(lambda i=inputs, o=dense: torch.clamp(i[0], *clamp[name], out=o[0]))
+                lib_stack_calls.append(
+                    lambda i=inputs, o=views: torch.clamp(i[0], *clamp[name], out=o[0]))
+        # device time per launch (CUDA-graph replay), in turns, kernel and
+        # library call side by side: dense, library, stack, library into the
+        # stack, and back again
+        def lib(calls):
+            return graph_ms(calls) if calls else None
+
+        d1, l1 = graph_ms(dense_calls), lib(lib_calls)
+        s1, ls1 = graph_ms(stack_calls), lib(lib_stack_calls)
+        ls2, s2 = lib(lib_stack_calls), graph_ms(stack_calls)
+        l2, d2 = lib(lib_calls), graph_ms(dense_calls)
         dense_ms, stack_ms = (d1 + d2) / 2, (s1 + s2) / 2
+        library_ms = (l1 + l2) / 2 if lib_calls else None
+        library_stack_ms = (ls1 + ls2) / 2 if lib_calls else None
         plain_ms = graph_ms(plain_calls)
-        library_ms = graph_ms(lib_calls) if lib_calls else None
         # what a Python caller sees per call, launch cost included
         eager_ms = cuda_ms(rotating(stack_calls), iters=50 * sets)
         flops = ops_px * npix
@@ -420,7 +476,8 @@ def phase_ingest_kernels(card: dict) -> dict:
         timings[name] = {
             "replaces": replaces, "shape": [*lead, c], "inputs": n_in, "outputs": n_out,
             "ms": stack_ms, "dense_ms": dense_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "library_ms": library_ms, "library_stack_ms": library_stack_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "flops": flops, "max_abs_err": worst[name], "buffer_sets": sets,
             "out_layout": f"channels {list(firsts)} of a {stack_c}-channel stack",
@@ -432,12 +489,85 @@ def phase_ingest_kernels(card: dict) -> dict:
             f"{timings[name]['bound_by']} ({nbytes / 1e6:.1f} MB at 3.35 TB/s; "
             f"{flops / 1e6:.1f} MFLOP at 67 TFLOP/s = {ops_ms * 1e3:.2f} us); "
             f"plain version {plain_ms * 1e3:.1f} us; "
-            + (f"torch.clamp {library_ms * 1e3:.1f} us; " if library_ms is not None else "")
+            + (f"torch.clamp {library_ms * 1e3:.1f} us dense out "
+               f"({nbytes / (library_ms * 1e-3) / 1e12:.2f} TB/s), {library_stack_ms * 1e3:.1f} us "
+               f"into the same stack; " if library_ms is not None else "")
             + f"eager call {eager_ms * 1e3:.1f} us; device times by CUDA-graph replay over "
             f"{sets} buffer sets | {card['smi']}")
-        del keep, dense_calls, stack_calls, plain_calls, lib_calls
+        del keep, dense_calls, stack_calls, plain_calls, lib_calls, lib_stack_calls
         torch.cuda.empty_cache()
+    timings["group_encode"] = _time_group_encode(card, gen, worst["group_encode"])
     return timings
+
+
+def _group_encode_work(npix: int, groups: int, aux) -> tuple:
+    """(bytes, operations) of one group encode: every pass read once (the
+    aux passes once for all groups), every pixel of every group written
+    once; 7 operations per radiance element pair, 2 per aux element."""
+    a = sum(AUX_CHANNELS[x] for x in aux)
+    nbytes = 4 * npix * (9 * groups + a + groups * (9 + a))
+    flops = npix * (7 * 3 * groups + 2 * a)
+    return nbytes, flops
+
+
+def _time_group_encode(card: dict, gen, max_abs_err: float) -> dict:
+    """Device time of the whole-pixel group encode at the flagship-max
+    frame's shape (4 groups, 1080p, all aux passes) by CUDA-graph replay
+    over three buffer sets (each 340 MB in, 464 MB out: far past the L2),
+    in turns with the per-pass route it replaces on the frame path, then
+    the plain version; and the kernel alone for the other aux subsets."""
+    from deepdenoiser_tpu_torch.ops import fused_ingest as fi
+
+    lead, npix, groups = (FRAME_H, FRAME_W), FRAME_H * FRAME_W, LIGHT_GROUPS
+    sets = 3
+    keep = [(_raw_passes(lead, gen), torch.empty((len(groups), *lead, 14), device="cuda"))
+            for _ in range(sets)]
+    by_aux = {}
+    for aux in AUX_SUBSETS:
+        c = 9 + sum(AUX_CHANNELS[x] for x in aux)
+        calls = [lambda pd=pd, o=out: fi.launch_group_cuda(
+            pd, groups, aux, out=o.view(-1)[: len(groups) * npix * c].view(len(groups), *lead, c))
+            for pd, out in keep]
+        by_aux[aux] = (graph_ms(calls), _group_encode_work(npix, len(groups), aux)[0])
+    aux = AUX_SUBSETS[-1]
+    kernel_calls = [lambda pd=pd, o=out: fi.launch_group_cuda(pd, groups, aux, out=o)
+                    for pd, out in keep]
+    per_pass_calls = [lambda pd=pd, o=out: _per_pass_groups(pd, groups, aux, o) for pd, out in keep]
+    plain_calls = [lambda pd=pd: _plain_groups(pd, groups, aux) for pd, _ in keep]
+    k1, p1 = graph_ms(kernel_calls), graph_ms(per_pass_calls)
+    p2, k2 = graph_ms(per_pass_calls), graph_ms(kernel_calls)
+    kernel_ms, per_pass_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    plain_ms = graph_ms(plain_calls, replays=3)
+    eager_ms = cuda_ms(rotating(kernel_calls), iters=30)
+    nbytes, flops = _group_encode_work(npix, len(groups), aux)
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = flops / H100_FP32_FLOP_PER_S * 1e3
+    tile = fi.group_tile_pixels(14)
+    timing = {
+        "replaces": GROUP_ENCODE_REPLACES, "shape": [len(groups), *lead, 14], "ms": kernel_ms,
+        "eager_ms": eager_ms, "plain_ms": plain_ms, "per_pass_ms": per_pass_ms,
+        "library_ms": None,  # no single PyTorch call encodes and interleaves the passes
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": nbytes, "flops": flops, "max_abs_err": max_abs_err, "buffer_sets": sets,
+        "tile_pixels": tile, "blocks": math.ceil(npix / tile),
+        "ms_by_aux": {"+".join(a) or "none": ms for a, (ms, _) in by_aux.items()},
+    }
+    log(f"[kernels] fused_ingest.group_encode {tuple(timing['shape'])}, {len(groups)} groups x "
+        f"{npix} pixels in {timing['blocks']} tiles of {tile}: {kernel_ms * 1e3:.1f} us/launch "
+        f"({nbytes / (kernel_ms * 1e-3) / 1e12:.2f} TB/s); bound {timing['bound_ms'] * 1e3:.1f} us "
+        f"by {timing['bound_by']} ({nbytes / 1e6:.1f} MB at 3.35 TB/s; {flops / 1e6:.1f} MFLOP at "
+        f"67 TFLOP/s = {ops_ms * 1e3:.2f} us); the per-pass route (12 launches + 4 albedo copies) "
+        f"{per_pass_ms * 1e3:.1f} us; plain version {plain_ms * 1e3:.1f} us; eager call "
+        f"{eager_ms * 1e3:.1f} us; device times by CUDA-graph replay over {sets} buffer sets, in "
+        f"turns kernel/per-pass/per-pass/kernel | {card['smi']}")
+    log("[kernels] fused_ingest.group_encode by aux subset, 4 groups at 1080p: "
+        + "; ".join(f"{'+'.join(a) or 'none'} {ms * 1e3:.1f} us "
+                    f"({nb / (ms * 1e-3) / 1e12:.2f} TB/s, bound "
+                    f"{nb / H100_BYTES_PER_S * 1e6:.1f} us)" for a, (ms, nb) in by_aux.items()))
+    del keep, kernel_calls, per_pass_calls, plain_calls
+    torch.cuda.empty_cache()
+    return timing
 
 
 def _fourier_frame():
@@ -599,13 +729,14 @@ def phase_flagship_max(frame: dict, card: dict, profile: bool = False,
     """The group-mode path at full width: flagship-max (UNet base 48, depth
     3, 2-slot 5x5 KPN) with weights/kpn_ema_f16.npz, four light groups as
     one (4, 1144, 1984, 14) batch, the fused ingest chosen through a config
-    JSON as a user would."""
+    JSON as a user would: one group-encode launch per frame and no per-pass
+    launch."""
     from deepdenoiser_tpu_torch import config, weights_io
     from deepdenoiser_tpu_torch.inference import pipeline
     from deepdenoiser_tpu_torch.models import kpn
 
     what = "flagship-max"
-    per_frame = dict(kpn_apply=2, radiance=4, normal=4, depth_alpha=4)
+    per_frame = dict(kpn_apply=2, group_encode=1)
     clean_c, noisy_c = _frame_on_card(frame)
     wpath = str(ROOT / "weights" / "kpn_ema_f16.npz")
     preset = config.PRESETS[what]
@@ -701,7 +832,7 @@ def phase_flagship_max(frame: dict, card: dict, profile: bool = False,
         f"synchronize, in turns fused/plain/plain/fused), peak {res['peak_gib']:.2f} GiB "
         f"| {card['smi']}")
     log(f"[{what}] encode of the four groups alone: fused {res['encode_fused_ms']:.3f} ms "
-        f"(12 launches + 4 albedo copies), plain {res['encode_plain_ms']:.3f} ms (CUDA events "
+        f"(1 launch), plain {res['encode_plain_ms']:.3f} ms (CUDA events "
         f"around 20 calls) | {card['smi']}")
     log(f"[{what}] PSNR gain {res['gain_db']:.4f} dB (cli {res['cli_gain_db']:.4f} dB, plain "
         f"encode {res['plain_gain_db']:.4f} dB, fp32 reference {res['fp32_gain_db']:.4f} dB); "
@@ -713,19 +844,17 @@ def phase_flagship_max(frame: dict, card: dict, profile: bool = False,
 
 def phase_aux_subsets(frame: dict, card: dict) -> dict:
     """Group frames whose aux set leaves depth or alpha alone, so the
-    depth-only and alpha-only kernels run on a path: a base-16, depth-2 KPN
-    model with seeded random weights, 1080p, fp32. Returns kernel name ->
-    launches of the frame that runs it."""
+    depth-only and alpha-only bodies run on a frame path: a base-16, depth-2
+    KPN model with seeded random weights, 1080p, fp32. Returns path name ->
+    group-encode launches of that frame."""
     from deepdenoiser_tpu_torch import config, transforms, weights_io
     from deepdenoiser_tpu_torch.inference import pipeline
     from deepdenoiser_tpu_torch.models import factory
 
     frame_dev = _fp32_frame(frame)
     counts = {}
-    for aux, own, per_frame in [
-        (("normal", "depth"), "depth", dict(kpn_apply=2, radiance=4, normal=4, depth=4)),
-        (("alpha",), "alpha", dict(kpn_apply=2, radiance=4, alpha=4)),
-    ]:
+    for aux in (("normal", "depth"), ("alpha",)):
+        per_frame = dict(kpn_apply=2, group_encode=1)
         mcfg = factory.ModelConfig(
             in_channels=transforms.group_input_channels(aux), out_channels=6, base_width=16,
             depth=2, act="leaky_relu", kernel_prediction=True, kpn_size=3, kpn_slots=2)
@@ -744,7 +873,7 @@ def phase_aux_subsets(frame: dict, card: dict) -> dict:
             expect_launches(f"group frame aux={aux} fused={fused}", launches,
                             **(per_frame if fused else dict(kpn_apply=2)))
             if fused:
-                counts[own] = launches[own]
+                counts["aux " + "+".join(aux)] = launches["group_encode"]
             del den
         check_frame(f"group frame aux={aux}", outs[True])
         rel = frames_agree(f"group frame aux={aux}, fused vs plain encode", outs[True], outs[False])
@@ -753,6 +882,48 @@ def phase_aux_subsets(frame: dict, card: dict) -> dict:
             f"max|d|/max|ref| {rel:.2e} (limit {FRAME_TOL:g}) | {card['smi']}")
         del outs
         torch.cuda.empty_cache()
+    return counts
+
+
+def phase_per_pass_encode(frame: dict, card: dict) -> dict:
+    """The path of the per-pass kernels: the frame's four groups encoded by
+    encode_group_inputs_per_pass, for the three aux sets of the group frames
+    above, so that every per-pass kernel is launched on the frame's own
+    passes; each result must equal the one-launch encode to the last bit.
+    Returns kernel name -> launches of the run that reaches it."""
+    from deepdenoiser_tpu_torch.ops import fused_ingest as fi
+
+    frame_dev = _fp32_frame(frame)
+    counts = {}
+    for aux, per_run in [
+        (("normal", "depth", "alpha"), dict(radiance=4, normal=4, depth_alpha=4)),
+        (("normal", "depth"), dict(radiance=4, normal=4, depth=4)),
+        (("alpha",), dict(radiance=4, alpha=4)),
+    ]:
+        c = 9 + sum(AUX_CHANNELS[a] for a in aux)
+        out = torch.empty((len(LIGHT_GROUPS), FRAME_H, FRAME_W, c), device="cuda")
+        reset_launches()
+        _per_pass_groups(frame_dev, LIGHT_GROUPS, aux, out)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        expect_launches(f"per-pass encode aux={aux}", launches, **per_run)
+        one = fi.encode_groups_fused(frame_dev, LIGHT_GROUPS, aux)
+        torch.cuda.synchronize()
+        if not torch.equal(out, one):
+            raise AssertionError(f"per-pass encode aux={aux} differs from the one-launch encode: "
+                                 f"max|d|={float((out - one).abs().max()):.3e}")
+        for name, n in per_run.items():
+            counts.setdefault(name, n)
+        del out, one
+    per_pass_ms = cuda_ms(lambda: _per_pass_groups(
+        frame_dev, LIGHT_GROUPS, ("normal", "depth", "alpha"),
+        torch.empty((len(LIGHT_GROUPS), FRAME_H, FRAME_W, 14), device="cuda")), iters=20)
+    one_ms = cuda_ms(lambda: fi.encode_groups_fused(frame_dev, LIGHT_GROUPS), iters=20)
+    log(f"[per-pass encode] the frame's 4 groups through the per-pass kernels, 3 aux sets: "
+        f"launches {counts}, each result == the one-launch encode; all aux passes: "
+        f"{per_pass_ms:.3f} ms per frame (12 launches + 4 albedo copies) against "
+        f"{one_ms:.3f} ms in one launch (CUDA events around 20 calls) | {card['smi']}")
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -841,6 +1012,7 @@ def main(argv=None) -> int:
                  kernel_launches_per_frame=0, check_fp32=False, profile=args.profile)
     max_res = phase_flagship_max(frame, card, profile=args.profile)
     aux_counts = phase_aux_subsets(frame, card)
+    per_pass_counts = phase_per_pass_encode(frame, card)
     phase_rgb(frame, card)
     phase_preset("flagship", "flagship_ema_f16.npz", frame, card, kernel_launches_per_frame=0,
                  check_fp32=True, profile=args.profile, timed_frames=5)
@@ -854,15 +1026,28 @@ def main(argv=None) -> int:
         group_shape=group["shape"], group_ms=group["ms"], group_plain_ms=group["plain_ms"],
         group_bound_ms=group["bound_ms"],
     )]
+    group_t = ingest.pop("group_encode")
     for name, t in ingest.items():
-        # launches: of the flagship-max cli frame, or for the depth-only and
-        # alpha-only kernels of the aux-subset group frame that runs them
-        launches = max_res["cli_launches"][name] or aux_counts.get(name, 0)
+        # launches: of the per-pass encode of the frame's passes (the group
+        # frames run these bodies inside the group encode's launch)
         kernels.append(_kernel_row(
             f"fused_ingest.{name}", "deepdenoiser_tpu_torch/csrc/fused_ingest.cu", t["replaces"],
-            launches, t, dense_ms=t["dense_ms"], eager_ms=t["eager_ms"],
-            out_layout=t["out_layout"], buffer_sets=t["buffer_sets"],
+            per_pass_counts.get(name, 0), t, dense_ms=t["dense_ms"], eager_ms=t["eager_ms"],
+            library_stack_ms=t["library_stack_ms"], out_layout=t["out_layout"],
+            buffer_sets=t["buffer_sets"], path="per-pass encode of the frame's passes",
         ))
+    # launches: of the flagship-max cli frame; the bodies it runs on each
+    # frame path are the TPU kernels the per-pass rows name
+    kernels.append(_kernel_row(
+        "fused_ingest.group_encode", "deepdenoiser_tpu_torch/csrc/fused_ingest.cu",
+        group_t["replaces"], max_res["cli_launches"]["group_encode"], group_t,
+        eager_ms=group_t["eager_ms"], per_pass_ms=group_t["per_pass_ms"],
+        ms_by_aux=group_t["ms_by_aux"], tile_pixels=group_t["tile_pixels"],
+        blocks=group_t["blocks"], buffer_sets=group_t["buffer_sets"],
+        launches_by_path={"flagship-max": max_res["cli_launches"]["group_encode"], **aux_counts},
+        bodies_by_path={path: [ingest[b]["replaces"] for b in bodies]
+                        for path, bodies in GROUP_ENCODE_BODIES.items()},
+    ))
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"kernels launched on no path: {idle}")

@@ -2,54 +2,102 @@
 // group-mode denoise, one pass over the raw render passes.
 //
 // Replaces the five TPU kernels of deepdenoiser_tpu/ops/fused_ingest.py,
-// all launched there through _run_2d:
+// all launched there through _run_2d, and their assembler
+// encode_group_inputs_pallas:
 //
-//   fused_radiance_f32     _radiance_kernel     (encode_radiance)
+//   RadianceOp    _radiance_kernel     (encode_radiance)
 //       out_d = log1p(max(d / (c + eps), 0)),  out_i = log1p(max(i / (c + eps), 0))
-//   fused_normal_f32       _aux_kernel          (encode_normal)
+//   NormalOp      _aux_kernel          (encode_normal)
 //       out = min(max(n, -1), 1)
-//   fused_depth_alpha_f32  _depth_alpha_kernel  (encode_depth_alpha)
+//   DepthAlphaOp  _depth_alpha_kernel  (encode_depth_alpha)
 //       out_d = log1p(max(d, 0)),  out_a = min(max(a, 0), 1)
-//   fused_depth_f32        _depth_kernel        (encode_depth)
-//   fused_alpha_f32        _alpha_kernel        (encode_alpha)
+//   DepthOp       _depth_kernel        (encode_depth)
+//   AlphaOp       _alpha_kernel        (encode_alpha)
 //
-// What bounds them: memory. Each element is read once and written once
-// (radiance: 20 B in flight for a division and two log1p; the others 8 B
-// for a clamp or a log1p), far below the card's fp32 balance point, so the
-// only cost that matters is bytes moved. What the design does about it:
+// The five __device__ bodies below are the single definition of that
+// arithmetic. Three launchers run them:
 //
-//   * No padded copy. The TPU version pads every 2-D view up to (8, 512)
-//     blocks, writes padded planes and slices them. Here a flat grid-stride
-//     loop walks the elements and a guarded tail takes what is left over,
-//     so nothing is padded and nothing is sliced.
-//   * 128-bit accesses where the buffers allow: when every input and every
-//     output is dense and 16-byte aligned, a thread moves four elements as
-//     one float4 per tensor. The launcher tests pointers and strides.
-//   * Strided tensors. Every tensor is a (pixels, channels) view given by
-//     a pixel stride and a channel stride in elements, so the caller can
-//     point the outputs at channel ranges of a preallocated (..., H, W, 14)
-//     network input and the channel concatenation of the TPU path (its
-//     jnp.concatenate) never happens. A call with any strided tensor takes
-//     the scalar kernel, in which neighbouring lanes handle neighbouring
-//     elements: dense inputs are still read in full 128-byte lines, and a
-//     warp's stores into the stack land in as few lines as the strides
-//     allow. (A first form kept the float4 loads and let each thread
-//     scatter its own four results; its stores hit 32 different lines per
-//     instruction and ran several times slower.) The stores still fill
-//     only part of each 32-byte sector of the stack, which is what keeps
-//     the strided form away from the bound.
+//   fused_group_encode_f32   every light group's whole network input in one
+//                            launch: the group path of the frame denoise
+//   fused_<pass>_f32         one body alone, dense (float4) or strided
+//
+// What bounds them: memory. An element is read once and written once
+// (radiance: 20 B for a division and two log1p; the others 8 B for a clamp
+// or a log1p), far below the card's fp32 balance point, so the only cost
+// that matters is bytes moved and how whole the card's 32-byte sectors are
+// when they move. What the design does about it:
+//
+//   * Whole pixels, once (group_encode_kernel). The network reads a
+//     (groups, pixels, C) stack, C = 9 + aux channels, a pixel being
+//     [enc direct 3 | enc indirect 3 | albedo 3 | aux...]. Writing it pass
+//     by pass stores 12 or 4 bytes out of every 4*C, so each sector of a
+//     stack far larger than the L2 is filled in parts by several launches
+//     and fetched again in between. Here a block owns TILE_PIXELS
+//     consecutive pixels: it reads the shared aux passes once and keeps
+//     their encoded values in registers, then for every group reads direct,
+//     indirect and albedo as float4s, lays the pixel-major tile out in
+//     shared memory and copies it to the stack, which is contiguous there,
+//     with float4 stores, neighbouring lanes on neighbouring 16 bytes. Every
+//     sector of the stack is written whole, once; the albedo copy rides
+//     along; the aux passes are read once per frame, not once per group.
+//     The next group's loads are started before the current tile is copied
+//     out, so they overlap the stores.
+//   * Alignment without a second route. TILE_PIXELS * C * 4 is a multiple
+//     of 16 for every C, but group g's first float, g * pixels * C, need not
+//     be a multiple of 4 when the frame is ragged. The tile therefore sits
+//     in shared memory at the same offset modulo 4 floats as in the stack,
+//     so an aligned float4 of one is an aligned float4 of the other; up to
+//     three floats at either end, and the short last tile of a frame, go
+//     one by one.
+//   * Shared-memory banks. A lane holds a float4 of a 3-channel pass and
+//     scatters its four elements to pixel e/3, channel e%3 of the tile, so
+//     neighbouring lanes write 4*C/3 words apart: two- to four-way
+//     conflicts, accepted, since the tile passes through shared memory at a
+//     small fraction of its bandwidth. The copy-out reads it conflict-free.
+//   * Dense form (ingest_dense_kernel), for a pass alone. The grid is sized
+//     to the work: a thread starts DENSE_UNROLL independent float4 loads per
+//     input before its first store and never loops, indices are 32-bit when
+//     the element count allows, and loads and stores carry the streaming
+//     hint (every byte is touched once; the frame's other tensors want the
+//     L2). Measured, all of this moves a 1080p pass by a few per cent at
+//     most: the one-input passes run level with the same clamp as one
+//     library call, which is what the memory system gives a read-once,
+//     write-once stream of this size. An earlier form (a capped grid of
+//     256-thread blocks in a grid-stride loop with 64-bit indices, one
+//     float4 in flight per thread and input) was measured a fifth to a
+//     third slower than that call.
+//   * Strided form (ingest_strided_kernel), for a caller that points the
+//     outputs at channel ranges of a wider tensor: every tensor is a
+//     (pixels, channels) view given by a pixel stride and a channel stride
+//     in elements, one element per thread in a grid-stride loop,
+//     neighbouring lanes on neighbouring elements. Its stores fill only
+//     part of each sector, which keeps it several times above its bound,
+//     where the same clamp as one library call writing into the same view
+//     also is; the frame path does not use it.
 //
 // Arithmetic follows the plain version (transforms.py): IEEE division,
 // fmaxf before log1pf, clamps as fminf(fmaxf(..)); build without
 // -use_fast_math. eps is an argument (transforms.DEMOD_EPS), not a constant
 // of this file.
+//
+// DENSE_THREADS, DENSE_UNROLL and where the streaming hint stands are what
+// was measured fastest on an H100 for the one-input passes and for the group
+// encode: 128 against 256 threads and 1, 2 or 4 loads in flight move a
+// one-input pass by under 1 %; the hint helps the 1-channel pass by 3 % and,
+// put on the group encode's loads, costs it 11 %, so those are plain. The
+// three-input radiance pass would gain 3 % from no hint and no unrolling,
+// and keeps the one-input passes' setting.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int MAX_BLOCKS = 132 * 8;  // 8 resident blocks of 256 threads per SM
+constexpr int THREADS = 256;         // strided and group kernels
+constexpr int MAX_BLOCKS = 132 * 8;  // strided kernel: 8 resident blocks of 256 threads per SM
+constexpr int DENSE_THREADS = 256;
+constexpr int DENSE_UNROLL = 2;
+constexpr int TILE_PIXELS = 256;  // group kernel; ops/fused_ingest.py: GROUP_TILE_PIXELS
+constexpr int MAX_GROUPS = 8;     // group kernel; ops/fused_ingest.py: GROUP_CAPACITY
 
 // A (pixels, channels) view: element (p, ch) lives at p * ps + ch * cs.
 struct View {
@@ -108,39 +156,52 @@ struct AlphaOp {
   }
 };
 
-// Dense form: every tensor is contiguous and 16-byte aligned. One thread
-// moves four consecutive elements per tensor as a float4; the n % 4
-// leftover elements go one per thread.
-template <class Op>
-__global__ void __launch_bounds__(THREADS)
-ingest_dense_kernel(Views<Op::NIN, Op::NOUT> v, long long n, Op op) {
-  const long long step = static_cast<long long>(gridDim.x) * THREADS;
-  const long long tid = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  const long long groups = n / 4;
-  for (long long g = tid; g < groups; g += step) {
-    float x[Op::NIN][4];
-    float y[Op::NOUT][4];
+// Dense form: every tensor is contiguous and 16-byte aligned. A block takes
+// DENSE_THREADS * DENSE_UNROLL consecutive float4s of each tensor; a thread
+// loads its DENSE_UNROLL of every input (DENSE_THREADS float4s apart, so a
+// warp's accesses stay contiguous) before it computes and stores. The n % 4
+// leftover elements go one per thread of block 0. Index is unsigned int
+// when n < 2^31, else long long.
+template <class Op, class Index>
+__global__ void __launch_bounds__(DENSE_THREADS)
+ingest_dense_kernel(Views<Op::NIN, Op::NOUT> v, Index quads, Index n, Op op) {
+  const Index first = static_cast<Index>(blockIdx.x) * (DENSE_THREADS * DENSE_UNROLL) + threadIdx.x;
+  float x[Op::NIN][DENSE_UNROLL][4];
 #pragma unroll
-    for (int t = 0; t < Op::NIN; ++t) {
-      const float4 q = reinterpret_cast<const float4*>(v.in[t].ptr)[g];
-      x[t][0] = q.x; x[t][1] = q.y; x[t][2] = q.z; x[t][3] = q.w;
-    }
+  for (int k = 0; k < DENSE_UNROLL; ++k) {
+    const Index q = first + k * DENSE_THREADS;
+    if (q < quads) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float xi[Op::NIN];
-      float yo[Op::NOUT];
-#pragma unroll
-      for (int t = 0; t < Op::NIN; ++t) xi[t] = x[t][j];
-      op(xi, yo);
-#pragma unroll
-      for (int t = 0; t < Op::NOUT; ++t) y[t][j] = yo[t];
-    }
-#pragma unroll
-    for (int t = 0; t < Op::NOUT; ++t) {
-      reinterpret_cast<float4*>(v.out[t].ptr)[g] = make_float4(y[t][0], y[t][1], y[t][2], y[t][3]);
+      for (int t = 0; t < Op::NIN; ++t) {
+        const float4 f = __ldcs(reinterpret_cast<const float4*>(v.in[t].ptr) + q);
+        x[t][k][0] = f.x; x[t][k][1] = f.y; x[t][k][2] = f.z; x[t][k][3] = f.w;
+      }
     }
   }
-  for (long long e = groups * 4 + tid; e < n; e += step) {
+#pragma unroll
+  for (int k = 0; k < DENSE_UNROLL; ++k) {
+    const Index q = first + k * DENSE_THREADS;
+    if (q < quads) {
+      float y[Op::NOUT][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float xi[Op::NIN];
+        float yo[Op::NOUT];
+#pragma unroll
+        for (int t = 0; t < Op::NIN; ++t) xi[t] = x[t][k][j];
+        op(xi, yo);
+#pragma unroll
+        for (int t = 0; t < Op::NOUT; ++t) y[t][j] = yo[t];
+      }
+#pragma unroll
+      for (int t = 0; t < Op::NOUT; ++t) {
+        __stcs(reinterpret_cast<float4*>(v.out[t].ptr) + q,
+               make_float4(y[t][0], y[t][1], y[t][2], y[t][3]));
+      }
+    }
+  }
+  const Index e = quads * 4 + threadIdx.x;
+  if (blockIdx.x == 0 && e < n) {
     float xi[Op::NIN];
     float yo[Op::NOUT];
 #pragma unroll
@@ -191,13 +252,22 @@ int launch(const Views<Op::NIN, Op::NOUT>& v, long long npix, int c, Op op, void
   bool dense = true;
   for (int t = 0; t < Op::NIN; ++t) dense = dense && dense_and_aligned(v.in[t], c);
   for (int t = 0; t < Op::NOUT; ++t) dense = dense && dense_and_aligned(v.out[t], c);
-  const long long work = dense ? (n + 3) / 4 : n;  // threads that have something to do
-  const long long want = (work + THREADS - 1) / THREADS;
-  const int blocks = static_cast<int>(want < MAX_BLOCKS ? want : MAX_BLOCKS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dense) {
-    ingest_dense_kernel<Op><<<blocks, THREADS, 0, s>>>(v, n, op);
+    constexpr long long per_block = DENSE_THREADS * DENSE_UNROLL;
+    const long long quads = n / 4;
+    const long long blocks = quads > 0 ? (quads + per_block - 1) / per_block : 1;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned int grid = static_cast<unsigned int>(blocks);
+    if (n < (1LL << 31)) {
+      ingest_dense_kernel<Op, unsigned int><<<grid, DENSE_THREADS, 0, s>>>(
+          v, static_cast<unsigned int>(quads), static_cast<unsigned int>(n), op);
+    } else {
+      ingest_dense_kernel<Op, long long><<<grid, DENSE_THREADS, 0, s>>>(v, quads, n, op);
+    }
   } else {
+    const long long want = (n + THREADS - 1) / THREADS;
+    const int blocks = static_cast<int>(want < MAX_BLOCKS ? want : MAX_BLOCKS);
     ingest_strided_kernel<Op><<<blocks, THREADS, 0, s>>>(v, n, c, op);
   }
   return static_cast<int>(cudaGetLastError());
@@ -207,12 +277,204 @@ View view(const float* ptr, long long ps, long long cs) {
   return View{const_cast<float*>(ptr), ps, cs};
 }
 
+// ---------------------------------------------------------------------------
+// The whole-pixel group encode
+// ---------------------------------------------------------------------------
+
+struct GroupArgs {
+  const float* direct[MAX_GROUPS];  // dense (npix, 3), 16-byte aligned
+  const float* indirect[MAX_GROUPS];
+  const float* albedo[MAX_GROUPS];
+  const float* normal;  // dense (npix, 3) or null
+  const float* depth;   // dense (npix, 1) or null
+  const float* alpha;   // dense (npix, 1) or null
+  float* out;           // dense (groups, npix, C), 16-byte aligned
+  long long npix;
+  int groups;
+  int off_normal, off_depth, off_alpha;  // first channel of each aux pass within a pixel
+  float eps;
+};
+
+// Floats [4q, 4q + 4) of a 16-byte-aligned run of n floats; 0 past its end.
+__device__ __forceinline__ void load_quad(const float* run, int q, int n, float* v) {
+  if (4 * q + 4 <= n) {
+    const float4 f = reinterpret_cast<const float4*>(run)[q];
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = 4 * q + j < n ? run[4 * q + j] : 0.0f;
+    }
+  }
+}
+
+// One block per tile of TILE_PIXELS consecutive pixels, all groups. Lanes
+// 0..191 each hold one float4 of a 3-channel pass of the tile (768 floats),
+// lanes 0..63 one float4 of a 1-channel pass.
+template <bool NORMAL, bool DEPTH, bool ALPHA>
+__global__ void __launch_bounds__(THREADS, 4)
+group_encode_kernel(GroupArgs a) {
+  constexpr int C = 9 + 3 * NORMAL + DEPTH + ALPHA;
+  static_assert((TILE_PIXELS * C * 4) % 16 == 0, "a tile must be a whole number of float4s");
+  static_assert(TILE_PIXELS % 4 == 0 && TILE_PIXELS * 3 / 4 <= THREADS,
+                "one float4 of a 3-channel pass per lane");
+  __shared__ __align__(16) float tile[TILE_PIXELS * C + 4];
+
+  const int tid = threadIdx.x;
+  const long long p0 = static_cast<long long>(blockIdx.x) * TILE_PIXELS;
+  const long long left = a.npix - p0;
+  const int valid = left < TILE_PIXELS ? static_cast<int>(left) : TILE_PIXELS;
+  const bool rgb_lane = tid < TILE_PIXELS * 3 / 4;
+  const bool one_lane = tid < TILE_PIXELS / 4;
+  const RadianceOp radiance{a.eps};
+
+  float d[4], i[4], c[4];  // this lane's float4 of the group's direct, indirect, albedo
+  if (rgb_lane) {
+    load_quad(a.direct[0] + p0 * 3, tid, valid * 3, d);
+    load_quad(a.indirect[0] + p0 * 3, tid, valid * 3, i);
+    load_quad(a.albedo[0] + p0 * 3, tid, valid * 3, c);
+  }
+
+  // the shared aux passes: read and encoded once, kept for every group
+  float nrm[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float dep[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float alp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (NORMAL && rgb_lane) {
+    float x[4];
+    load_quad(a.normal + p0 * 3, tid, valid * 3, x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) NormalOp{}(&x[j], &nrm[j]);
+  }
+  if ((DEPTH || ALPHA) && one_lane) {
+    float xd[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float xa[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (DEPTH) load_quad(a.depth + p0, tid, valid, xd);
+    if (ALPHA) load_quad(a.alpha + p0, tid, valid, xa);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (DEPTH && ALPHA) {
+        const float x[2] = {xd[j], xa[j]};
+        float y[2];
+        DepthAlphaOp{}(x, y);
+        dep[j] = y[0];
+        alp[j] = y[1];
+      } else if (DEPTH) {
+        DepthOp{}(&xd[j], &dep[j]);
+      } else {
+        AlphaOp{}(&xa[j], &alp[j]);
+      }
+    }
+  }
+
+  for (int g = 0; g < a.groups; ++g) {
+    // flat index in `out` of the tile's first float, and its offset in a float4
+    const long long first = (static_cast<long long>(g) * a.npix + p0) * C;
+    const int m = static_cast<int>(first & 3);
+    float* s = tile + m;
+    if (rgb_lane) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = 4 * tid + j;
+        const int px = e / 3;
+        float* dst = s + px * C + (e - 3 * px);
+        const float x[3] = {d[j], i[j], c[j]};
+        float y[2];
+        radiance(x, y);
+        dst[0] = y[0];
+        dst[3] = y[1];
+        dst[6] = c[j];
+        if (NORMAL) dst[a.off_normal] = nrm[j];
+      }
+    }
+    if ((DEPTH || ALPHA) && one_lane) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float* dst = s + (4 * tid + j) * C;
+        if (DEPTH) dst[a.off_depth] = dep[j];
+        if (ALPHA) dst[a.off_alpha] = alp[j];
+      }
+    }
+    if (g + 1 < a.groups && rgb_lane) {  // in flight while this tile is copied out
+      load_quad(a.direct[g + 1] + p0 * 3, tid, valid * 3, d);
+      load_quad(a.indirect[g + 1] + p0 * 3, tid, valid * 3, i);
+      load_quad(a.albedo[g + 1] + p0 * 3, tid, valid * 3, c);
+    }
+    __syncthreads();
+
+    // floats [m, m + n) of `tile` go to out[first, first + n); `aligned`
+    // is the float4 grid of both
+    const int n = valid * C;
+    float* aligned = a.out + (first - m);
+    const int q0 = (m + 3) >> 2;
+    const int q1 = (m + n) >> 2;
+    for (int q = q0 + tid; q < q1; q += THREADS) {
+      reinterpret_cast<float4*>(aligned)[q] = reinterpret_cast<const float4*>(tile)[q];
+    }
+    const int head_end = min(4 * q0, m + n);
+    const int tail_begin = max(4 * q1, head_end);
+    if (m + tid < head_end) aligned[m + tid] = tile[m + tid];
+    if (tail_begin + tid < m + n) aligned[tail_begin + tid] = tile[tail_begin + tid];
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 // Every entry point launches on `stream` and returns cudaGetLastError()
-// after the launch (0 = launched). Tensors are (npix, c) views with a pixel
-// stride and a channel stride in elements; the caller checks shapes, types
-// and that outputs do not overlap.
+// after the launch (0 = launched). The caller checks shapes, types,
+// contiguity and that outputs do not overlap.
+
+// group_ptrs: 3 * groups device pointers in host memory, [direct, indirect,
+// albedo] per group, each a dense 16-byte-aligned (npix, 3) tensor. normal
+// (npix, 3), depth and alpha (npix, 1) are dense and aligned, or null where
+// the aux set leaves them out; off_* is the pass's first channel within a
+// pixel of C = 9 + aux channels. out: dense aligned (groups, npix, C).
+extern "C" int fused_group_encode_f32(const float* const* group_ptrs, int groups,
+                                      const float* normal, const float* depth, const float* alpha,
+                                      float* out, long long npix,
+                                      int off_normal, int off_depth, int off_alpha,
+                                      float eps, void* stream) {
+  if (groups < 1 || groups > MAX_GROUPS || npix < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int c = 9 + (normal ? 3 : 0) + (depth ? 1 : 0) + (alpha ? 1 : 0);
+  if ((normal && (off_normal < 9 || off_normal + 3 > c)) || (depth && (off_depth < 9 || off_depth >= c)) ||
+      (alpha && (off_alpha < 9 || off_alpha >= c))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long tiles = (npix + TILE_PIXELS - 1) / TILE_PIXELS;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  GroupArgs a = {};
+  for (int g = 0; g < groups; ++g) {
+    a.direct[g] = group_ptrs[3 * g];
+    a.indirect[g] = group_ptrs[3 * g + 1];
+    a.albedo[g] = group_ptrs[3 * g + 2];
+  }
+  a.normal = normal;
+  a.depth = depth;
+  a.alpha = alpha;
+  a.out = out;
+  a.npix = npix;
+  a.groups = groups;
+  a.off_normal = off_normal;
+  a.off_depth = off_depth;
+  a.off_alpha = off_alpha;
+  a.eps = eps;
+  const unsigned int grid = static_cast<unsigned int>(tiles);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((normal ? 4 : 0) | (depth ? 2 : 0) | (alpha ? 1 : 0)) {
+    case 0: group_encode_kernel<false, false, false><<<grid, THREADS, 0, s>>>(a); break;
+    case 1: group_encode_kernel<false, false, true><<<grid, THREADS, 0, s>>>(a); break;
+    case 2: group_encode_kernel<false, true, false><<<grid, THREADS, 0, s>>>(a); break;
+    case 3: group_encode_kernel<false, true, true><<<grid, THREADS, 0, s>>>(a); break;
+    case 4: group_encode_kernel<true, false, false><<<grid, THREADS, 0, s>>>(a); break;
+    case 5: group_encode_kernel<true, false, true><<<grid, THREADS, 0, s>>>(a); break;
+    case 6: group_encode_kernel<true, true, false><<<grid, THREADS, 0, s>>>(a); break;
+    default: group_encode_kernel<true, true, true><<<grid, THREADS, 0, s>>>(a); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The per-pass entry points: tensors are (npix, c) views with a pixel
+// stride and a channel stride in elements.
 
 extern "C" int fused_radiance_f32(const float* direct, const float* indirect, const float* color,
                                   float* out_direct, float* out_indirect,

@@ -142,11 +142,11 @@ class GroupFrameDenoiser:
     light group denoised by the same per-group network: the G encoded
     groups run as one (G, H, W, C) batch.
 
-    `fused`: encode with ops/fused_ingest.py (on the card its CUDA kernels
-    write each group's channels straight into the batch) instead of
-    transforms.encode_group_inputs. The kernels bake the unscaled
-    transforms, so with `scales` the plain encoder runs either way, as in
-    the JAX pipeline."""
+    `fused`: encode with ops/fused_ingest.encode_groups_fused (on the card
+    one launch of its CUDA kernel writes every group's pixels straight into
+    the batch) instead of transforms.encode_group_inputs. The kernels bake
+    the unscaled transforms, so with `scales` the plain encoder runs either
+    way, as in the JAX pipeline."""
 
     def __init__(self, model: factory.DenoiserModel, grid: tiled.TileGrid,
                  groups: Sequence[str], aux: Sequence[str], device: torch.device,
@@ -165,14 +165,7 @@ class GroupFrameDenoiser:
                 transforms.encode_group_inputs(pd, g, self.aux, scales=self.scales)
                 for g in self.groups
             ], 0)
-        h, w = self.grid.height, self.grid.width
-        enc = torch.empty(
-            (len(self.groups), h, w, transforms.group_input_channels(self.aux)),
-            dtype=torch.float32, device=self.device,
-        )
-        for i, g in enumerate(self.groups):
-            fused_ingest.encode_group_inputs_fused(pd, g, self.aux, out=enc[i])
-        return enc
+        return fused_ingest.encode_groups_fused(pd, self.groups, self.aux)
 
     @torch.inference_mode()
     def __call__(self, pass_dict: Mapping[str, Any]) -> Dict[str, Tensor]:
@@ -204,7 +197,7 @@ def make_group_frame_denoiser(
     groups batched into one pass. Same output dict as the joint denoiser.
 
     infer_cfg.use_pallas_ingest keeps the JAX package's meaning: true →
-    the fused ingest kernels (ops/fused_ingest.encode_group_inputs_fused),
+    the fused ingest kernel (ops/fused_ingest.encode_groups_fused),
     false → transforms.encode_group_inputs. With stats-driven `scales` the
     plain encoder runs even if the flag is set, because the kernels bake
     the unscaled transforms. Runs on "cuda" unless `device` says otherwise;

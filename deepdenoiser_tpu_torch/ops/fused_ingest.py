@@ -2,10 +2,8 @@
 
 Replaces the five TPU kernels of deepdenoiser_tpu/ops/fused_ingest.py
 (_radiance_kernel, _aux_kernel, _depth_alpha_kernel, _depth_kernel,
-_alpha_kernel) and their assembler encode_group_inputs_pallas. The group
-frame launches them once per light group when
-InferenceConfig.use_pallas_ingest is set. All five are memory-bound
-elementwise passes; the design note is in the CUDA source.
+_alpha_kernel) and their assembler encode_group_inputs_pallas. All are
+memory-bound elementwise passes; the design note is in the CUDA source.
 
 The public functions keep the JAX names and take HWC or NHWC fp32 tensors:
 
@@ -13,14 +11,22 @@ The public functions keep the JAX names and take HWC or NHWC fp32 tensors:
     encode_normal(normal), encode_depth(depth), encode_alpha(alpha)
     encode_depth_alpha(depth, alpha) -> (enc_depth, enc_alpha)
     encode_group_inputs_fused(pass_dict, group, aux) -> (..., H, W, 9 + aux)
+    encode_groups_fused(pass_dict, groups, aux) -> (G, ..., H, W, 9 + aux)
 
-Each returns fresh tensors, or with `out=` writes into views the caller
-gives — channel ranges of a preallocated network input, say — which is how
-encode_group_inputs_fused assembles its stack without a concatenation.
+encode_groups_fused is what the group frame calls when
+InferenceConfig.use_pallas_ingest is set: one launch of the whole-pixel
+kernel (fused_group_encode_f32) encodes every light group into the
+network's input batch, running the five kernel bodies inside it.
+encode_group_inputs_fused is its one-group case. The per-pass functions
+launch one body each; they return fresh tensors, or with `out=` write into
+views the caller gives, channel ranges of a wider tensor included
+(encode_group_inputs_per_pass assembles a group's input that way, launch
+for launch as the TPU assembler does).
 
 Tensors on the CPU go to the plain versions below (the per-pass
-transforms.normalize / demodulate) and count no launch; tensors on the
-card launch the kernel or raise — there is no fallback.
+transforms.normalize / demodulate, transforms.encode_group_inputs) and
+count no launch; tensors on the card launch the kernel or raise — there is
+no fallback.
 """
 
 from __future__ import annotations
@@ -44,9 +50,22 @@ _KERNELS = {
     "alpha": ("fused_alpha_f32", 1, 1, False),
 }
 
-# Launches of each CUDA kernel since the last reset (plain counts; a
-# wrapper adds one where it launches and nowhere else).
-launches: Dict[str, int] = {name: 0 for name in _KERNELS}
+# The whole-pixel group encode. Its C argument list, in order: the host
+# array of 3 pointers per group, the group count, normal, depth, alpha (null
+# where the aux set leaves one out), out, pixels, the first channel of
+# normal, depth and alpha within a pixel, eps, the stream.
+_GROUP_ENTRY = "fused_group_encode_f32"
+_GROUP_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+)
+GROUP_CAPACITY = 8  # groups per launch (MAX_GROUPS of the CUDA source)
+GROUP_TILE_PIXELS = 256  # pixels per block (TILE_PIXELS of the CUDA source)
+
+# Launches of each CUDA entry point since the last reset (plain counts; a
+# wrapper adds one where it launches and nowhere else). "group_encode"
+# counts fused_group_encode_f32, the others the per-pass entry points.
+launches: Dict[str, int] = {name: 0 for name in (*_KERNELS, "group_encode")}
 
 _fns: Dict[str, object] = {}
 
@@ -69,6 +88,16 @@ def _kernel(name: str):
         )
         fn.restype = ctypes.c_int
         _fns[name] = fn
+    return fn
+
+
+def _group_kernel():
+    fn = _fns.get("group_encode")
+    if fn is None:
+        fn = getattr(_build.load("fused_ingest"), _GROUP_ENTRY)
+        fn.argtypes = list(_GROUP_ARGTYPES)
+        fn.restype = ctypes.c_int
+        _fns["group_encode"] = fn
     return fn
 
 
@@ -245,6 +274,129 @@ def launch_cuda(name: str, *inputs: Tensor) -> Tuple[Tensor, ...]:
     return _run(name, inputs, None, plain_on_cpu=False)
 
 
+def group_tile_pixels(channels: int) -> int:
+    """Pixels in one block's tile of a (groups, pixels, channels) stack. A
+    tile is copied out as float4s, so its byte size must be a multiple of
+    16 for every channel count the aux subsets give (9 to 14)."""
+    if channels < 9 or (GROUP_TILE_PIXELS * channels * 4) % 16:
+        raise ValueError(f"no float4 tile for {channels} channels")
+    return GROUP_TILE_PIXELS
+
+
+def _aux_offsets(aux: Sequence[str]) -> Dict[str, int]:
+    """First channel of each aux pass within a pixel, in the caller's order."""
+    at, ch = {}, 9
+    for a in aux:
+        if a not in passes.AUX_PASSES:
+            raise KeyError(f"unknown aux pass {a!r}")
+        if a in at:
+            raise ValueError(f"aux pass {a!r} given twice")
+        at[a] = ch
+        ch += passes.channels(a)
+    return at
+
+
+def _dense16(t: Tensor) -> Tensor:
+    """`t` itself if dense and 16-byte aligned, else one dense copy."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def launch_group_cuda(
+    pass_dict: Mapping[str, Tensor],
+    groups: Sequence[str],
+    aux: Sequence[str] = passes.AUX_PASSES,
+    out: Optional[Tensor] = None,
+) -> Tensor:
+    """The group-encode kernel entry itself: encode_groups_fused for CUDA
+    tensors; CPU tensors raise."""
+    return encode_groups_fused(pass_dict, groups, aux, out, _plain_on_cpu=False)
+
+
+def encode_groups_fused(
+    pass_dict: Mapping[str, Tensor],
+    groups: Sequence[str],
+    aux: Sequence[str] = passes.AUX_PASSES,
+    out: Optional[Tensor] = None,
+    _plain_on_cpu: bool = True,
+) -> Tensor:
+    """Every group's network input, (G, ..., H, W, 9 + aux channels): per
+    group [log1p(demod direct), log1p(demod indirect), albedo, encoded
+    aux...] along channels, unscaled, as transforms.encode_group_inputs
+    gives them stacked. On the card one launch writes whole pixels of every
+    group and reads the shared aux passes once (more launches past
+    GROUP_CAPACITY groups).
+
+    fp32 HWC or NHWC passes on one device and of one (..., H, W). `out`: a
+    contiguous, 16-byte-aligned tensor of the result's shape to write into,
+    else a fresh one is made; any other `out` raises. An unknown aux name
+    or light group is a KeyError."""
+    name = "encode_groups_fused"
+    groups = tuple(groups)
+    if not groups:
+        raise ValueError(f"fused_ingest.{name}: no light group given")
+    at = _aux_offsets(aux)
+    named = [(p, 3) for g in groups for p in passes.group_passes(g)]
+    named += [(a, passes.channels(a)) for a in at]
+    first = pass_dict[named[0][0]]
+    lead = tuple(first.shape[:-1])
+    if first.dim() not in (3, 4):
+        raise ValueError(f"fused_ingest.{name}: HWC or NHWC, got {tuple(first.shape)}")
+    for p, c in named:
+        t = pass_dict[p]
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_ingest.{name}: fp32 only, got {t.dtype} for {p!r}")
+        if t.device != first.device:
+            raise ValueError(f"fused_ingest.{name}: tensors on {first.device} and {t.device}")
+        if tuple(t.shape) != (*lead, c):
+            raise ValueError(
+                f"fused_ingest.{name}: {p!r} is {tuple(t.shape)}, want {(*lead, c)}")
+    n_ch = transforms.group_input_channels(tuple(at))
+    shape = (len(groups), *lead, n_ch)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=first.device)
+    else:
+        if out.dtype != torch.float32:
+            raise TypeError(f"fused_ingest.{name}: fp32 only, got {out.dtype} for out")
+        if out.device != first.device:
+            raise ValueError(f"fused_ingest.{name}: out on {out.device}, passes on {first.device}")
+        if tuple(out.shape) != shape:
+            raise ValueError(f"fused_ingest.{name}: out {tuple(out.shape)} != {shape}")
+        if not out.is_contiguous() or out.data_ptr() % 16:
+            raise ValueError(
+                f"fused_ingest.{name}: out must be contiguous and 16-byte aligned; got strides "
+                f"{out.stride()} for shape {shape}, address % 16 = {out.data_ptr() % 16}")
+    if first.device.type == "cpu" and _plain_on_cpu:
+        plain = torch.stack([transforms.encode_group_inputs(pass_dict, g, tuple(at))
+                             for g in groups], 0)
+        return out.copy_(plain)
+    if first.device.type != "cuda":
+        raise ValueError(f"fused_ingest.{name}: tensors on {first.device}, need a CUDA device")
+    npix = first.numel() // 3
+    if npix == 0:
+        return out
+    group_tile_pixels(n_ch)
+    aux_t = {a: _dense16(pass_dict[a]) for a in at}
+    with torch.cuda.device(first.device):
+        stream = torch.cuda.current_stream(first.device).cuda_stream
+        for g0 in range(0, len(groups), GROUP_CAPACITY):
+            chunk = groups[g0 : g0 + GROUP_CAPACITY]
+            ins = [_dense16(pass_dict[p]) for g in chunk for p in passes.group_passes(g)]
+            ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
+            err = _group_kernel()(
+                ptrs, len(chunk),
+                *(aux_t[a].data_ptr() if a in at else None for a in passes.AUX_PASSES),
+                out[g0].data_ptr(), npix,
+                *(at.get(a, -1) for a in passes.AUX_PASSES),
+                transforms.DEMOD_EPS, stream,
+            )
+            if err != 0:
+                raise RuntimeError(
+                    f"fused_ingest.{name}: kernel launch failed with cudaError {err}")
+            launches["group_encode"] += 1
+    return out
+
+
 def encode_group_inputs_fused(
     pass_dict: Mapping[str, Tensor],
     group: str,
@@ -253,36 +405,42 @@ def encode_group_inputs_fused(
 ) -> Tensor:
     """The fused twin of transforms.encode_group_inputs (unscaled):
     [log1p(demod direct), log1p(demod indirect), albedo, encoded aux...]
-    along channels. The kernels write straight into channel ranges of the
-    result (`out`, or a fresh tensor), so nothing is concatenated. Depth
-    and alpha share one launch only when both are asked for; either alone
-    takes its own kernel. An unknown aux name is a KeyError."""
+    along channels, written by the one-group case of encode_groups_fused's
+    launch into `out` (contiguous, 16-byte aligned) or a fresh tensor, so
+    nothing is concatenated. An unknown aux name is a KeyError."""
+    return encode_groups_fused(pass_dict, (group,), aux,
+                               None if out is None else out.unsqueeze(0))[0]
+
+
+def encode_group_inputs_per_pass(
+    pass_dict: Mapping[str, Tensor],
+    group: str,
+    aux: Sequence[str] = passes.AUX_PASSES,
+    out: Optional[Tensor] = None,
+) -> Tensor:
+    """The same result through the per-pass kernels, launch for launch as
+    encode_group_inputs_pallas makes them: each writes its channel range of
+    the result (`out`, which may itself be a view, or a fresh tensor).
+    Depth and alpha share one launch only when both are asked for; either
+    alone takes its own kernel."""
     d_name, i_name, c_name = passes.group_passes(group)
     albedo = pass_dict[c_name]
-    for a in aux:
-        if a not in ("normal", "depth", "alpha"):
-            raise KeyError(f"unknown aux pass {a!r}")
-    n_ch = transforms.group_input_channels(tuple(aux))
-    shape = (*albedo.shape[:-1], n_ch)
+    at = {a: slice(ch, ch + passes.channels(a)) for a, ch in _aux_offsets(aux).items()}
+    shape = (*albedo.shape[:-1], transforms.group_input_channels(tuple(at)))
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=albedo.device)
     elif tuple(out.shape) != shape:
-        raise ValueError(f"encode_group_inputs_fused: out {tuple(out.shape)} != {shape}")
+        raise ValueError(f"encode_group_inputs_per_pass: out {tuple(out.shape)} != {shape}")
     encode_radiance(pass_dict[d_name], pass_dict[i_name], albedo,
                     out=(out[..., 0:3], out[..., 3:6]))
     out[..., 6:9].copy_(albedo)
-    at = {}
-    ch = 9
-    for a in aux:
-        at[a] = out[..., ch : ch + passes.channels(a)]
-        ch += passes.channels(a)
     if "normal" in at:
-        encode_normal(pass_dict["normal"], out=at["normal"])
+        encode_normal(pass_dict["normal"], out=out[..., at["normal"]])
     if "depth" in at and "alpha" in at:
         encode_depth_alpha(pass_dict["depth"], pass_dict["alpha"],
-                           out=(at["depth"], at["alpha"]))
+                           out=(out[..., at["depth"]], out[..., at["alpha"]]))
     elif "depth" in at:
-        encode_depth(pass_dict["depth"], out=at["depth"])
+        encode_depth(pass_dict["depth"], out=out[..., at["depth"]])
     elif "alpha" in at:
-        encode_alpha(pass_dict["alpha"], out=at["alpha"])
+        encode_alpha(pass_dict["alpha"], out=out[..., at["alpha"]])
     return out

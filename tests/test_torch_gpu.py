@@ -160,24 +160,97 @@ def test_ingest_kernel_matches_plain_version(cuda, name, lead):
         assert g_.shape == w_.shape and _ingest_within(g_, w_)
 
 
-@pytest.mark.parametrize("aux", [(), ("depth",), ("alpha",), ("normal", "depth"),
-                                 ("normal", "depth", "alpha")], ids=str)
+AUX_SUBSETS = [(), ("depth",), ("alpha",), ("normal", "depth"), ("normal", "depth", "alpha")]
+
+
+def _all_groups(pd):
+    """The two seeded groups under all four group names."""
+    for new, old in (("subsurface", "diffuse"), ("transmission", "glossy")):
+        for part in ("direct", "indirect", "color"):
+            pd[f"{new}_{part}"] = pd[f"{old}_{part}"].flip(0)
+    return pd
+
+
+@pytest.mark.parametrize("aux", AUX_SUBSETS, ids=str)
 @pytest.mark.parametrize("lead", [(37, 53), (2, 20, 36)], ids=str)
 def test_group_encode_writes_strided_channel_ranges(cuda, aux, lead):
-    """encode_group_inputs_fused points the kernels at channel ranges of one
-    preallocated stack: the strided-output path, with unaligned bases."""
+    """encode_group_inputs_per_pass points the per-pass kernels at channel
+    ranges of one preallocated stack (the strided-output path, with
+    unaligned bases); encode_group_inputs_fused gives the same pixels in
+    one launch of the whole-pixel kernel."""
     pd = _raw_passes(lead, cuda, seed=3)
     fused_ingest.reset_launches()
-    got = fused_ingest.encode_group_inputs_fused(pd, "glossy", aux)
+    got = fused_ingest.encode_group_inputs_per_pass(pd, "glossy", aux)
+    n = dict(fused_ingest.launches)
+    one = fused_ingest.encode_group_inputs_fused(pd, "glossy", aux)
     want = transforms.encode_group_inputs(pd, "glossy", aux)
     torch.cuda.synchronize()
     assert got.shape == want.shape and _ingest_within(got, want)
-    n = fused_ingest.launches
-    assert n["radiance"] == 1 and n["normal"] == int("normal" in aux)
+    assert one.shape == want.shape and _ingest_within(one, want)
+    assert n["radiance"] == 1 and n["normal"] == int("normal" in aux) and n["group_encode"] == 0
     both = "depth" in aux and "alpha" in aux
     assert n["depth_alpha"] == int(both)
     assert n["depth"] == int("depth" in aux and not both)
     assert n["alpha"] == int("alpha" in aux and not both)
+    assert fused_ingest.launches == {**n, "group_encode": 1}
+
+
+@pytest.mark.parametrize("aux", [*AUX_SUBSETS, ("alpha", "depth", "normal")], ids=str)
+@pytest.mark.parametrize("n_groups", [1, 2, 3, 4])
+@pytest.mark.parametrize("lead", [(64, 96), (2, 20, 36), (37, 53), (7, 9), (1, 1)], ids=str)
+def test_group_encode_kernel_matches_plain_version(cuda, lead, n_groups, aux):
+    """The whole-pixel launch against the stacked plain encode: frame-sized
+    (whole tiles), batched, and ragged shapes whose pixel count is no
+    multiple of the tile, so that the later groups start off the float4
+    grid and the last tile is short."""
+    pd = _all_groups(_raw_passes(lead, cuda, seed=7))
+    groups = ("diffuse", "glossy", "subsurface", "transmission")[:n_groups]
+    fused_ingest.reset_launches()
+    got = fused_ingest.encode_groups_fused(pd, groups, aux)
+    assert fused_ingest.launches["group_encode"] == 1
+    assert sum(fused_ingest.launches.values()) == 1
+    want = torch.stack([transforms.encode_group_inputs(pd, g, aux) for g in groups], 0)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.is_contiguous() and _ingest_within(got, want)
+
+
+def test_group_encode_kernel_takes_more_groups_than_one_launch_holds(cuda):
+    pd = _all_groups(_raw_passes((37, 53), cuda, seed=8))
+    groups = ("diffuse", "glossy", "subsurface", "transmission") * 3  # 12 > GROUP_CAPACITY
+    fused_ingest.reset_launches()
+    got = fused_ingest.encode_groups_fused(pd, groups)
+    assert fused_ingest.launches["group_encode"] == 2
+    want = torch.stack([transforms.encode_group_inputs(pd, g) for g in groups], 0)
+    torch.cuda.synchronize()
+    assert _ingest_within(got, want)
+
+
+def test_group_encode_kernel_copies_sliced_inputs_and_writes_a_given_out(cuda):
+    """Row-sliced and misaligned inputs get one dense copy each; a given
+    `out` is written in place and nothing beside it; a strided or
+    misaligned `out` raises."""
+    pd = _all_groups(_raw_passes((50, 72), cuda, seed=9))
+    sliced = {k: v[5:45:2] for k, v in pd.items()}
+    flat = torch.rand(20 * 72 * 3 + 1, device=cuda) * 3 - 1.5
+    sliced["normal"] = flat[1:].view(20, 72, 3)  # dense, 4 bytes off the float4 grid
+    batch = torch.full((3, 2, 20, 72, 14), -7.0, device=cuda)
+    groups = ("glossy", "subsurface")
+    ret = fused_ingest.encode_groups_fused(sliced, groups, out=batch[1])
+    want = torch.stack([transforms.encode_group_inputs(sliced, g) for g in groups], 0)
+    torch.cuda.synchronize()
+    assert ret.data_ptr() == batch[1].data_ptr() and _ingest_within(batch[1], want)
+    assert bool((batch[0] == -7.0).all()) and bool((batch[2] == -7.0).all())
+    fused_ingest.reset_launches()
+    with pytest.raises(ValueError, match="strides"):
+        fused_ingest.encode_groups_fused(
+            sliced, groups, out=torch.empty((2, 20, 72, 28), device=cuda)[..., ::2])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_ingest.encode_groups_fused(
+            sliced, groups,
+            out=torch.empty(2 * 20 * 72 * 14 + 1, device=cuda)[1:].view(2, 20, 72, 14))
+    with pytest.raises(ValueError, match="tensors on"):
+        fused_ingest.encode_groups_fused({**sliced, "depth": sliced["depth"].cpu()}, groups)
+    assert sum(fused_ingest.launches.values()) == 0
 
 
 def test_ingest_kernel_reads_strided_inputs_and_writes_a_given_view(cuda):
@@ -208,9 +281,10 @@ def test_ingest_kernels_refuse_other_dtypes_and_mixed_devices(cuda):
 
 
 def test_flagship_max_group_frame_on_the_card_matches_the_cpu_port(cuda):
-    """The group frame at fp32 (TF32 off) with the fused ingest launches K2-K4
-    once per group and K1 once per slot, and agrees with the same port on the
-    CPU (held to the JAX package by tests/test_torch_modes.py)."""
+    """The group frame at fp32 (TF32 off) with the fused ingest makes one
+    group-encode launch (the bodies of K2-K4 inside it) and one K1 launch per
+    slot, and agrees with the same port on the CPU (held to the JAX package
+    by tests/test_torch_modes.py)."""
     h, w = 64, 96
     clean = synthetic.generate_clean_passes(h, w, seed=5)
     noisy = synthetic.add_mc_noise(clean, spp=4, seed=6)
@@ -227,8 +301,8 @@ def test_flagship_max_group_frame_on_the_card_matches_the_cpu_port(cuda):
         got = den_gpu(frame)
         torch.cuda.synchronize()
         assert kpn_apply.launches == cfg.model.kpn_slots
-        assert fused_ingest.launches == {"radiance": 4, "normal": 4, "depth_alpha": 4,
-                                         "depth": 0, "alpha": 0}
+        assert fused_ingest.launches == {"radiance": 0, "normal": 0, "depth_alpha": 0,
+                                         "depth": 0, "alpha": 0, "group_encode": 1}
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
     den_cpu, _ = pipeline.make_group_frame_denoiser(cfg.model, icfg, h, w, params, device="cpu")
