@@ -33,7 +33,24 @@ non-zero:
                  per-pass kernel launched, result == the one-launch encode
   8. rgb         combined-RGB model: cli --config, frame factory, denoise_crop
   9. flagship    joint frame with the space-to-depth stem, gain vs fp32
-  10. one JSON line {"kernels": [...]}
+  10. tiled 4K   kpn-hq at 2160x3840 (the 1080p frame mirrored 2x2), tile 512,
+                 tile_batch 8: 5 lazy chunks of (8, 656, 656, 41), 40 KPN
+                 launches per frame; against the same frame whole with the
+                 certified halo: ms per frame and peak memory of both, bf16
+                 gains within 0.05 dB; at 1080p in fp32 (TF32 off) tiled ==
+                 whole within 1e-4 x max|ref| per pass
+  11. feather    flagship-max 1080p group frame, tile 512, tile_batch 8, fused
+                 ingest: exact tiled == whole (fp32, 1e-4), feathered stitch
+                 finite and close to exact (reported), ms per frame in bf16
+  12. tiramisu   tiramisu-lt1, tiramisu-fast, tiramisu at 1080p: as phase 5
+                 with the fp32 check (bf16 gain within 0.15 dB of fp32)
+  13. multiscale unet-multiscale, seeded random weights, fp32: finite, median
+  14. flags      flagship-flags-shaped joint frame without the subsurface
+                 group: no subsurface passes out, combined == recompose
+  15. sequence   run_sequence over 4 noisy 1080p frames with flagship-hq (PSNR
+                 and SSIM on the device), and `deepdenoiser-torch eval` over a
+                 small render root written to a temporary directory
+  16. one JSON line {"kernels": [...]}
   (with --profile, the frame phases also print device time by kernel and the
   device's busy share, from torch.profiler)
   then the card's name and power limit as nvidia-smi prints them, and last
@@ -55,6 +72,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -68,9 +86,15 @@ H100_L2_BYTES = 50e6
 TOL_ABS = TOL_REL = 1e-5  # same fp32 taps in the same order; FMA contraction
 INGEST_TOL = 1e-6  # abs and rel: the same fp32 operations; log1pf's last bit
 FRAME_TOL = 1e-5  # x max|ref|: a frame with the fused encode vs the plain encode
+TILED_TOL = 1e-4  # x max|ref|: a tiled fp32 frame vs the whole frame on the same plane
 GAIN_TOL_DB = 0.05
+# bf16 against fp32 for the tiramisu presets: the dense stack rounds to bf16
+# at every concat, which costs more than in the UNets
+TIRAMISU_GAIN_TOL_DB = 0.15
 FRAME_H, FRAME_W = 1080, 1920
 PLANE_H, PLANE_W = 1144, 1984  # the frame with its 32 px border, as the network sees it
+UHD_H, UHD_W = 2160, 3840
+TILE, TILE_BATCH, NET_TILE = 512, 8, 656  # 512 px cores + the certified halo 67 -> 72 per side
 TIMED_FRAMES = 10
 AUX_SUBSETS = [(), ("depth",), ("alpha",), ("normal", "depth"), ("normal", "depth", "alpha")]
 LIGHT_GROUPS = ("diffuse", "glossy", "subsurface", "transmission")
@@ -179,25 +203,25 @@ def time_frames(run, frames: int) -> list:
     return times
 
 
-def check_frame(what: str, out: dict) -> None:
+def check_frame(what: str, out: dict, hw=None) -> None:
     comb = out["combined"]
-    if tuple(comb.shape) != (FRAME_H, FRAME_W, 3) or not all(
+    if tuple(comb.shape) != (*(hw or (FRAME_H, FRAME_W)), 3) or not all(
         torch.isfinite(v).all() for v in out.values()
     ):
         raise AssertionError(f"{what}: output not finite / wrong shape {tuple(comb.shape)}")
 
 
-def frames_agree(what: str, got: dict, ref: dict) -> float:
-    """max over passes of max|got - ref| / max|ref|; raises above FRAME_TOL."""
+def frames_agree(what: str, got: dict, ref: dict, tol: float = FRAME_TOL) -> float:
+    """max over passes of max|got - ref| / max|ref|; raises above `tol`."""
     if set(got) != set(ref):
         raise AssertionError(f"{what}: passes {sorted(got)} != {sorted(ref)}")
     worst = 0.0
     for name, r in ref.items():
         rel = float((got[name] - r).abs().max() / r.abs().max().clamp_min(1e-30))
         worst = max(worst, rel)
-        if not rel <= FRAME_TOL:
+        if not rel <= tol:
             raise AssertionError(f"{what}: pass {name} differs by {rel:.3e} x max|ref| "
-                                 f"(limit {FRAME_TOL:g})")
+                                 f"(limit {tol:g})")
     return worst
 
 
@@ -261,7 +285,8 @@ def _kpn_inputs(shape, k, stack_channels, gen):
 
 def phase_kernels(card: dict) -> dict:
     """The KPN filter apply against its plain version. Returns the timing at
-    the joint path's shape, with the group path's under "group"."""
+    the joint path's shape, with the group path's under "group" and the
+    tiled frame's tile batch under "tile"."""
     from deepdenoiser_tpu_torch.models import kpn
     from deepdenoiser_tpu_torch.ops import kpn_apply
 
@@ -269,6 +294,7 @@ def phase_kernels(card: dict) -> dict:
     gen.manual_seed(0)
     # (shape, k, channels of the stack the slot is cut from, path it is timed for)
     cases = [((1, PLANE_H, PLANE_W, 3), 5, 24, "joint"), ((4, PLANE_H, PLANE_W, 3), 5, 14, "group"),
+             ((TILE_BATCH, NET_TILE, NET_TILE, 3), 5, 24, "tile"),  # a chunk of a tiled joint frame
              ((4, 260, 390, 3), 3, 0, None), ((1, 37, 53, 3), 5, 0, None)]
     worst = 0.0
     timings = {}
@@ -309,7 +335,8 @@ def phase_kernels(card: dict) -> dict:
                 f"plain version {plain_ms * 1e3:.1f} us | {card['smi']}")
         del noisy, weights
     torch.cuda.empty_cache()
-    return {**timings["joint"], "group": timings["group"], "max_abs_err": worst}
+    return {**timings["joint"], "group": timings["group"], "tile": timings["tile"],
+            "max_abs_err": worst}
 
 
 # The per-pass fused-ingest kernels: name -> (TPU kernel it replaces, passes
@@ -640,7 +667,8 @@ def _cli_denoise(what: str, frame: dict, source: list, weights: str, mode: str):
 
 def phase_preset(preset: str, weights: str, frame: dict, card: dict,
                  kernel_launches_per_frame: int, check_fp32: bool,
-                 profile: bool = False, timed_frames: int = TIMED_FRAMES) -> dict:
+                 profile: bool = False, timed_frames: int = TIMED_FRAMES,
+                 gain_tol: float = GAIN_TOL_DB) -> dict:
     """A joint-mode preset: through the CLI, then through the factory, timed."""
     from deepdenoiser_tpu_torch import config, weights_io
     from deepdenoiser_tpu_torch.inference import pipeline
@@ -697,9 +725,9 @@ def phase_preset(preset: str, weights: str, frame: dict, card: dict,
             torch.cuda.synchronize()
         res["fp32_gain_db"] = _gain_db(ref_out, noisy_c, clean_c)
         diff = abs(res["gain_db"] - res["fp32_gain_db"])
-        if not torch.isfinite(ref_out).all() or diff > GAIN_TOL_DB:
+        if not torch.isfinite(ref_out).all() or diff > gain_tol:
             raise AssertionError(f"{preset}: bf16 gain {res['gain_db']:.4f} dB vs fp32 "
-                                 f"{res['fp32_gain_db']:.4f} dB differ by {diff:.4f} > {GAIN_TOL_DB}")
+                                 f"{res['fp32_gain_db']:.4f} dB differ by {diff:.4f} > {gain_tol}")
         del ref_fn, ref_out
     if profile:
         profile_frames(preset, lambda: denoise(frame_dev), card)
@@ -710,7 +738,8 @@ def phase_preset(preset: str, weights: str, frame: dict, card: dict,
         f"(min {res['ms_min']:.2f}, max {res['ms_max']:.2f}; host clock around synchronize), "
         f"peak {res['peak_gib']:.2f} GiB | {card['smi']}")
     log(f"[{preset}] PSNR gain {res['gain_db']:.4f} dB (cli {res['cli_gain_db']:.4f} dB"
-        + (f", fp32 reference {res['fp32_gain_db']:.4f} dB" if check_fp32 else "")
+        + (f", fp32 reference {res['fp32_gain_db']:.4f} dB, limit {gain_tol} dB apart"
+           if check_fp32 else "")
         + f"); kpn_apply launches: cli frame {res['cli_launches']}, "
         f"{res['launches_per_frame']:g} per timed frame")
     return res
@@ -975,6 +1004,330 @@ def phase_rgb(frame: dict, card: dict, timed_frames: int = 5) -> None:
     torch.cuda.empty_cache()
 
 
+def _mirror_2x2(x):
+    """(H, W, C) -> (2H, 2W, C): the frame beside its mirror image, over both
+    mirrored top to bottom. Seamless, and as cheap as a copy."""
+    import numpy as np
+
+    top = np.concatenate([x, x[:, ::-1]], axis=1)
+    return np.ascontiguousarray(np.concatenate([top, top[::-1]], axis=0), dtype=np.float32)
+
+
+def _timed(den, frame_dev, frames: int, warmup: int = 1):
+    """(times of `frames` synchronised calls, peak GiB over them, last output)."""
+    for _ in range(warmup):
+        den(frame_dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = time_frames(lambda: den(frame_dev), frames)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return times, peak, den(frame_dev)
+
+
+def phase_tiled_4k(frame: dict, card: dict, profile: bool = False, timed_frames: int = 3) -> dict:
+    """kpn-hq over a 4K frame in tiles, through the memory-bounded lazy
+    chunks, against the same frame run whole with the certified halo; then
+    tiled against whole in fp32 at 1080p. Returns the launches of one tiled
+    4K frame."""
+    from deepdenoiser_tpu_torch import config, weights_io
+    from deepdenoiser_tpu_torch.inference import pipeline
+
+    what = "kpn-hq 4K"
+    cfg = config.validate_channels(config.PRESETS["kpn-hq"])
+    params = weights_io.load_release_params(str(ROOT / "weights" / "kpn_hq_ema_f16.npz"))
+    tiled_cfg = dataclasses.replace(cfg.infer, tile=TILE, tile_batch=TILE_BATCH)
+    whole_cfg = dataclasses.replace(cfg.infer, tile=0, border=-1)
+    frame_dev = {k: torch.from_numpy(_mirror_2x2(v)).to("cuda") for k, v in frame["noisy"].items()}
+    clean_c = torch.from_numpy(_mirror_2x2(frame["clean"]["combined"])).to("cuda")
+    noisy_c = frame_dev["combined"]
+
+    den, grid = pipeline.make_joint_frame_denoiser(cfg.model, tiled_cfg, UHD_H, UHD_W, params)
+    if (grid.rows, grid.cols, grid.halo, grid.net_size) != (
+            -(-UHD_H // TILE), -(-UHD_W // TILE), (NET_TILE - TILE) // 2, NET_TILE):  # 5 x 8 at 4K
+        raise AssertionError(f"{what}: unexpected plan {grid}")
+    chunks = -(-grid.n_tiles // TILE_BATCH)
+    per_frame = cfg.model.kpn_slots * chunks  # 8 slots x 5 chunks
+    res = {"mpx_tiled": grid.n_tiles * NET_TILE**2 / 1e6}
+    den(frame_dev)  # builds, cuDNN's algorithm choice
+    torch.cuda.synchronize()
+    reset_launches()
+    den(frame_dev)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expect_launches(f"{what} tiled frame", launches, kpn_apply=per_frame)
+    res["launches"] = launches["kpn_apply"]
+    t_tiled, res["peak_tiled"], out = _timed(den, frame_dev, timed_frames, warmup=0)
+    check_frame(f"{what} tiled", out, (UHD_H, UHD_W))
+    res["gain_tiled"] = _gain_db(out["combined"], noisy_c, clean_c)
+    if profile:
+        profile_frames(f"{what} tiled", lambda: den(frame_dev), card, frames=2)
+    del den, out
+    torch.cuda.empty_cache()
+
+    den, wgrid = pipeline.make_joint_frame_denoiser(cfg.model, whole_cfg, UHD_H, UHD_W, params)
+    res["mpx_whole"] = wgrid.net_h * wgrid.net_w / 1e6
+    reset_launches()
+    t_whole, res["peak_whole"], out = _timed(den, frame_dev, timed_frames)
+    expect_launches(f"{what} whole frames", read_launches(), timed_frames + 2, kpn_apply=8)
+    check_frame(f"{what} whole", out, (UHD_H, UHD_W))
+    res["gain_whole"] = _gain_db(out["combined"], noisy_c, clean_c)
+    del den, out, frame_dev
+    torch.cuda.empty_cache()
+    diff = abs(res["gain_tiled"] - res["gain_whole"])
+    if min(res["gain_tiled"], res["gain_whole"]) <= 0 or diff > GAIN_TOL_DB:
+        raise AssertionError(f"{what}: gain tiled {res['gain_tiled']:.4f} dB vs whole "
+                             f"{res['gain_whole']:.4f} dB (limit {GAIN_TOL_DB})")
+    res.update(ms_tiled=statistics.median(t_tiled), ms_whole=statistics.median(t_whole))
+    log(f"[{what}] 2160x3840 joint frame (the 1080p frame mirrored 2x2), bf16: tiled "
+        f"{grid.rows}x{grid.cols} tiles of {NET_TILE} (halo {grid.halo}), {res['mpx_tiled']:.2f} Mpx "
+        f"of network input in {chunks} lazy chunks of {TILE_BATCH}: {res['ms_tiled']:.2f} ms/frame "
+        f"median of {timed_frames} (min {min(t_tiled):.2f}, max {max(t_tiled):.2f}), peak "
+        f"{res['peak_tiled']:.2f} GiB, kpn_apply launches {res['launches']}; whole frame with the "
+        f"certified halo, plane {wgrid.net_h}x{wgrid.net_w} = {res['mpx_whole']:.2f} Mpx: "
+        f"{res['ms_whole']:.2f} ms/frame (min {min(t_whole):.2f}, max {max(t_whole):.2f}), peak "
+        f"{res['peak_whole']:.2f} GiB; host clock around synchronize | {card['smi']}")
+    log(f"[{what}] PSNR gain tiled {res['gain_tiled']:.4f} dB, whole {res['gain_whole']:.4f} dB "
+        f"(limit {GAIN_TOL_DB} dB apart)")
+
+    # fp32 at 1080p, TF32 off: the tiled frame is the whole frame
+    frame_dev = _fp32_frame(frame)
+    with full_fp32():
+        outs = {}
+        for key, icfg in (("whole", whole_cfg), ("tiled", dataclasses.replace(
+                tiled_cfg, tile_batch=4))):  # at 1080p 12 tiles in 3 lazy chunks of 4
+            icfg = dataclasses.replace(icfg, compute_dtype="float32")
+            den, g = pipeline.make_joint_frame_denoiser(cfg.model, icfg, FRAME_H, FRAME_W, params)
+            reset_launches()
+            outs[key] = den(frame_dev)
+            torch.cuda.synchronize()
+            expect_launches(f"kpn-hq 1080p fp32 {key}", read_launches(),
+                            kpn_apply=8 * -(-g.n_tiles // 4))
+            del den
+            torch.cuda.empty_cache()
+    check_frame("kpn-hq 1080p fp32 tiled", outs["tiled"])
+    res["fp32_tiled_vs_whole"] = frames_agree("kpn-hq 1080p fp32, tiled vs whole", outs["tiled"],
+                                              outs["whole"], TILED_TOL)
+    log(f"[kpn-hq tiled 1080p] fp32 (TF32 off), {g.rows}x{g.cols} tiles of {g.net_size} in lazy "
+        f"chunks of 4 vs the whole frame with the certified halo: max over passes of "
+        f"max|d|/max|ref| {res['fp32_tiled_vs_whole']:.2e} (limit {TILED_TOL:g})")
+    del outs
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_feather(frame: dict, card: dict, timed_frames: int = 3) -> dict:
+    """flagship-max (group mode, fused ingest) at 1080p in tiles of 512 run
+    in chunks of 8 (batch_dims=1): exact stitching equals the whole frame in
+    fp32; the feathered stitch is finite and reported against exact
+    stitching (it blends uncertified halo pixels in, so it is close, not
+    equal). Returns the launches of one feathered frame."""
+    from deepdenoiser_tpu_torch import config, weights_io
+    from deepdenoiser_tpu_torch.inference import pipeline
+
+    what = "flagship-max tiled"
+    cfg = config.validate_channels(config.PRESETS["flagship-max"])
+    params = weights_io.load_release_params(str(ROOT / "weights" / "kpn_ema_f16.npz"))
+    base = dataclasses.replace(cfg.infer, use_pallas_ingest=True)
+    kinds = {"whole": dataclasses.replace(base, tile=0, border=-1),
+             "exact": dataclasses.replace(base, tile=TILE, tile_batch=TILE_BATCH),
+             "feather": dataclasses.replace(base, tile=TILE, tile_batch=TILE_BATCH,
+                                            stitch="feather")}
+    frame_dev = _fp32_frame(frame)
+    outs, res = {}, {}
+    with full_fp32():
+        for key, icfg in kinds.items():
+            icfg = dataclasses.replace(icfg, compute_dtype="float32")
+            den, grid = pipeline.make_group_frame_denoiser(cfg.model, icfg, FRAME_H, FRAME_W, params)
+            chunks = -(-len(LIGHT_GROUPS) * grid.n_tiles // TILE_BATCH) if icfg.tile else 1
+            reset_launches()
+            outs[key] = den(frame_dev)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            expect_launches(f"{what} fp32 {key}", launches, group_encode=1, kpn_apply=2 * chunks)
+            if key == "feather":
+                res["launches"] = launches
+            check_frame(f"{what} fp32 {key}", outs[key])
+            del den
+            torch.cuda.empty_cache()
+    res["exact_vs_whole"] = frames_agree(f"{what} fp32, exact stitch vs whole", outs["exact"],
+                                         outs["whole"], TILED_TOL)
+    rel_max, rel_mean = 0.0, 0.0
+    for name, r in outs["exact"].items():
+        d, scale = (outs["feather"][name] - r).abs(), r.abs().max().clamp_min(1e-30)
+        rel_max = max(rel_max, float(d.max() / scale))
+        rel_mean = max(rel_mean, float(d.mean() / scale))
+    res.update(feather_max=rel_max, feather_mean=rel_mean)
+    if rel_max > 0.1 or rel_mean > 2e-3:  # the bar the JAX package's test holds feathering to
+        raise AssertionError(f"{what}: feathered stitch strays from exact: max {rel_max:.3e}, "
+                             f"mean {rel_mean:.3e} x max|ref|")
+    del outs
+    torch.cuda.empty_cache()
+    den, grid = pipeline.make_group_frame_denoiser(cfg.model, kinds["feather"], FRAME_H, FRAME_W,
+                                                   params)
+    times, res["peak_gib"], out = _timed(den, frame_dev, timed_frames)
+    check_frame(f"{what} bf16 feather", out)
+    clean_c, noisy_c = _frame_on_card(frame)
+    res["gain_db"] = _gain_db(out["combined"], noisy_c, clean_c)
+    if res["gain_db"] <= 0:
+        raise AssertionError(f"{what}: no PSNR gain ({res['gain_db']})")
+    del den, out
+    torch.cuda.empty_cache()
+    log(f"[{what}] 1080p group frame, 4 groups x {grid.rows}x{grid.cols} tiles of {grid.net_size} "
+        f"(halo {grid.halo}) in chunks of {TILE_BATCH}, fused ingest; fp32 (TF32 off): exact stitch "
+        f"vs whole frame max|d|/max|ref| {res['exact_vs_whole']:.2e} (limit {TILED_TOL:g}); "
+        f"feathered vs exact stitch max {rel_max:.2e}, mean {rel_mean:.2e} x max|ref| (limits 0.1, "
+        f"2e-3); launches per feathered frame {res['launches']}")
+    log(f"[{what}] bf16 feathered: {statistics.median(times):.2f} ms/frame median of "
+        f"{timed_frames} (min {min(times):.2f}, max {max(times):.2f}; host clock around "
+        f"synchronize), peak {res['peak_gib']:.2f} GiB, PSNR gain {res['gain_db']:.4f} dB "
+        f"| {card['smi']}")
+    return res
+
+
+def _seeded_params(mcfg):
+    """Random parameters from a fixed seed, as the tree the factories take."""
+    from deepdenoiser_tpu_torch import weights_io
+    from deepdenoiser_tpu_torch.models import factory
+
+    torch.manual_seed(0)
+    return weights_io.params_from_state_dict(factory.build_model(mcfg).state_dict())
+
+
+def phase_multiscale(frame: dict, card: dict, timed_frames: int = 3) -> None:
+    """unet-multiscale (3 scales over a shared base-48 UNet): no release
+    weights, so seeded random ones, fp32; checked finite, one median."""
+    from deepdenoiser_tpu_torch import config
+    from deepdenoiser_tpu_torch.inference import pipeline
+
+    cfg = config.validate_channels(config.PRESETS["unet-multiscale"])
+    icfg = dataclasses.replace(cfg.infer, compute_dtype="float32")
+    den, grid = pipeline.make_joint_frame_denoiser(cfg.model, icfg, FRAME_H, FRAME_W,
+                                                   _seeded_params(cfg.model))
+    frame_dev = _fp32_frame(frame)
+    reset_launches()
+    times, peak, out = _timed(den, frame_dev, timed_frames)
+    expect_launches("unet-multiscale", read_launches())
+    check_frame("unet-multiscale", out)
+    log(f"[unet-multiscale] 1080p joint frame, 3 scales, random weights, fp32, plane "
+        f"{grid.net_h}x{grid.net_w} (halo {grid.halo}): finite; {statistics.median(times):.2f} "
+        f"ms/frame median of {timed_frames} (min {min(times):.2f}, max {max(times):.2f}), peak "
+        f"{peak:.2f} GiB | {card['smi']}")
+    del den, out
+    torch.cuda.empty_cache()
+
+
+def phase_flags(frame: dict, card: dict) -> None:
+    """The flagship-flags model (45 input channels, random weights) on the
+    frame with its subsurface group taken out."""
+    from deepdenoiser_tpu_torch import config, transforms
+    from deepdenoiser_tpu_torch.inference import pipeline
+
+    cfg = config.validate_channels(config.PRESETS["flagship-flags"])
+    if cfg.model.in_channels != 45 or not cfg.data.use_flags:
+        raise AssertionError(f"flagship-flags: unexpected config {cfg}")
+    den, grid = pipeline.make_joint_frame_denoiser(
+        cfg.model, cfg.infer, FRAME_H, FRAME_W, _seeded_params(cfg.model),
+        groups=tuple(cfg.data.groups), use_flags=True)
+    frame_dev = {k: v for k, v in _fp32_frame(frame).items() if not k.startswith("subsurface_")}
+    out = den(frame_dev)
+    torch.cuda.synchronize()
+    check_frame("flagship-flags", out)
+    present = tuple(g for g in LIGHT_GROUPS if g != "subsurface")
+    extra = [k for k in out if k.startswith("subsurface_")]
+    missing = [f"{g}_{part}" for g in present for part in ("direct", "indirect", "color")
+               if f"{g}_{part}" not in out]
+    if extra or missing:
+        raise AssertionError(f"flagship-flags: passes {sorted(out)}: extra {extra}, missing {missing}")
+    rec = transforms.recompose({k: v for k, v in out.items() if k != "combined"}, present)
+    rel = float((rec - out["combined"]).abs().max() / out["combined"].abs().max())
+    if not rel <= 1e-6:
+        raise AssertionError(f"flagship-flags: combined differs from recompose by {rel:.3e}")
+    log(f"[flagship-flags] 1080p joint frame without the subsurface group, 45 input channels, "
+        f"random weights, plane {grid.net_h}x{grid.net_w}: {len(out)} passes out, none of "
+        f"subsurface; combined == recompose of {len(present)} groups (max|d|/max|ref| {rel:.1e}) "
+        f"| {card['smi']}")
+    del den, out
+    torch.cuda.empty_cache()
+
+
+SEQUENCE_KEYS = {"n_frames", "height", "width", "grid", "latency_ms", "latency_ms_mean",
+                 "latency_ms_median", "fetch_overhead_ms", "psnr", "psnr_mean", "ssim", "ssim_mean"}
+
+
+def _check_report(what: str, report: dict, n: int, hw) -> None:
+    vals = [*report["psnr"], *report["ssim"], *report["latency_ms"], report["latency_ms_mean"]]
+    if (set(report) != SEQUENCE_KEYS or report["n_frames"] != n
+            or (report["height"], report["width"]) != tuple(hw)
+            or not all(math.isfinite(v) for v in vals)
+            or not all(0 < v <= 1 for v in report["ssim"]) or min(report["psnr"]) <= 0):
+        raise AssertionError(f"{what}: bad report {report}")
+
+
+def phase_sequence(frame: dict, card: dict, n_frames: int = 4) -> dict:
+    """The sequence harness over `n_frames` noisy renders of the 1080p frame
+    with flagship-hq, PSNR and SSIM computed on the card; then the `eval`
+    command over a small render root in a temporary directory."""
+    import io
+
+    import numpy as np
+
+    from deepdenoiser_tpu_torch import cli, config, weights_io
+    from deepdenoiser_tpu_torch.data import exr, synthetic
+    from deepdenoiser_tpu_torch.data.prepare import GT_DIR
+    from deepdenoiser_tpu_torch.inference import sequence
+    from deepdenoiser_tpu_torch.ops import metrics
+
+    wpath = str(ROOT / "weights" / "flagship_hq_ema_f16.npz")
+    cfg = config.validate_channels(config.PRESETS["flagship-hq"])
+    clean = frame["clean"]
+    frames = [frame["noisy"]] + [synthetic.add_mc_noise(clean, spp=4, seed=1 + i)
+                                 for i in range(1, n_frames)]
+    frames = [{k: np.asarray(v, np.float32) for k, v in f.items()} for f in frames]
+    gts = [np.asarray(clean["combined"], np.float32)] * n_frames
+    reset_launches()
+    report = sequence.run_sequence(cfg.model, cfg.infer, weights_io.load_release_params(wpath),
+                                   frames, gts, mode="joint")
+    expect_launches("sequence", read_launches())
+    _check_report("run_sequence", report, n_frames, (FRAME_H, FRAME_W))
+    tm = metrics.tonemap_for_metrics
+    ref = tm(torch.from_numpy(gts[0]).to("cuda"))[None]
+    noisy_t = tm(torch.from_numpy(frames[0]["combined"]).to("cuda"))[None]
+    noisy_psnr = float(metrics.psnr_per_image(noisy_t, ref)[0])
+    noisy_ssim = float(metrics.ssim(noisy_t, ref)[0])
+    if report["psnr"][0] <= noisy_psnr or report["ssim"][0] <= noisy_ssim:
+        raise AssertionError(f"run_sequence: no gain over the noisy frame: {report}")
+    ssim_ms = cuda_ms(lambda: metrics.ssim(noisy_t, ref), iters=10)
+    log(f"[sequence] run_sequence, flagship-hq, {n_frames} noisy renders of the 1080p frame: "
+        f"latency_ms {', '.join(f'{t:.2f}' for t in report['latency_ms'])} (median "
+        f"{report['latency_ms_median']:.2f}; each frame closed by a synchronize), latency_ms_mean "
+        f"{report['latency_ms_mean']:.2f} (all frames, one synchronize), fetch_overhead_ms "
+        f"{report['fetch_overhead_ms']:.3f}; PSNR {report['psnr_mean']:.4f} dB (noisy "
+        f"{noisy_psnr:.4f}), SSIM {report['ssim_mean']:.5f} (noisy {noisy_ssim:.5f}); ssim alone "
+        f"{ssim_ms:.3f} ms (CUDA events around 10 calls) | {card['smi']}")
+
+    h, w = 270, 480
+    with tempfile.TemporaryDirectory(dir=WORK) as tmp:
+        for i in range(2):
+            c = synthetic.generate_clean_passes(h, w, seed=10 + i)
+            fd = Path(tmp) / f"frame{i:04d}"
+            exr.save_frame_dir(fd / GT_DIR, c)
+            exr.save_frame_dir(fd / "spp4_seed0", synthetic.add_mc_noise(c, spp=4, seed=20 + i))
+            exr.save_frame_dir(fd / "spp16_seed0", synthetic.add_mc_noise(c, spp=16, seed=30 + i))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["eval", "--preset", "flagship-hq", "--weights", wpath,
+                           "--renders", tmp])
+    if rc != 0:
+        raise AssertionError(f"cli eval returned {rc}")
+    ev = json.loads(buf.getvalue())
+    _check_report("cli eval", ev, 2, (h, w))
+    log(f"[eval] deepdenoiser-torch eval, flagship-hq, 2 frames of {h}x{w} (spp4 scored, spp16 "
+        f"beside it): PSNR {ev['psnr_mean']:.4f} dB, SSIM {ev['ssim_mean']:.5f}, latency median "
+        f"{ev['latency_ms_median']:.2f} ms")
+    torch.cuda.empty_cache()
+    return report
+
+
 def _kernel_row(name: str, source: str, replaces: str, launches: int, t: dict, **extra) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1016,8 +1369,18 @@ def main(argv=None) -> int:
     phase_rgb(frame, card)
     phase_preset("flagship", "flagship_ema_f16.npz", frame, card, kernel_launches_per_frame=0,
                  check_fp32=True, profile=args.profile, timed_frames=5)
+    uhd_res = phase_tiled_4k(frame, card, profile=args.profile)
+    feather_res = phase_feather(frame, card)
+    for preset in ("tiramisu-lt1", "tiramisu-fast", "tiramisu"):
+        phase_preset(preset, preset.replace("-", "_") + "_ema_f16.npz", frame, card,
+                     kernel_launches_per_frame=0, check_fp32=True,
+                     profile=args.profile and preset == "tiramisu-lt1", timed_frames=5,
+                     gain_tol=TIRAMISU_GAIN_TOL_DB)
+    phase_multiscale(frame, card)
+    phase_flags(frame, card)
+    phase_sequence(frame, card)
 
-    group = kern["group"]
+    group, tile = kern["group"], kern["tile"]
     kernels = [_kernel_row(
         "kpn_apply", "deepdenoiser_tpu_torch/csrc/kpn_apply.cu",
         "deepdenoiser_tpu/ops/kpn_pallas.py:59", kpn_res["cli_launches"], kern,
@@ -1025,6 +1388,10 @@ def main(argv=None) -> int:
         launches_group_frame=max_res["cli_launches"]["kpn_apply"],
         group_shape=group["shape"], group_ms=group["ms"], group_plain_ms=group["plain_ms"],
         group_bound_ms=group["bound_ms"],
+        launches_tiled_4k_frame=uhd_res["launches"],
+        launches_feathered_group_frame=feather_res["launches"]["kpn_apply"],
+        tile_shape=tile["shape"], tile_ms=tile["ms"], tile_plain_ms=tile["plain_ms"],
+        tile_bound_ms=tile["bound_ms"], tile_bytes=tile["bytes"],
     )]
     group_t = ingest.pop("group_encode")
     for name, t in ingest.items():
@@ -1044,7 +1411,8 @@ def main(argv=None) -> int:
         eager_ms=group_t["eager_ms"], per_pass_ms=group_t["per_pass_ms"],
         ms_by_aux=group_t["ms_by_aux"], tile_pixels=group_t["tile_pixels"],
         blocks=group_t["blocks"], buffer_sets=group_t["buffer_sets"],
-        launches_by_path={"flagship-max": max_res["cli_launches"]["group_encode"], **aux_counts},
+        launches_by_path={"flagship-max": max_res["cli_launches"]["group_encode"], **aux_counts,
+                          "flagship-max feathered": feather_res["launches"]["group_encode"]},
         bodies_by_path={path: [ingest[b]["replaces"] for b in bodies]
                         for path, bodies in GROUP_ENCODE_BODIES.items()},
     ))

@@ -11,10 +11,13 @@ sm_90a under csrc/, built with nvcc at first use (ops/_build.py). Entry
 points run on the card unless the caller passes device="cpu"; on CPU
 tensors each kernel wrapper runs its plain PyTorch version.
 
-This slice: the joint-mode whole-frame denoise
-(inference.pipeline.make_joint_frame_denoiser) for the kpn-hq,
-flagship-hq and flagship-mc presets, with the KPN filter apply as a CUDA
-kernel (ops/kpn_apply.py, csrc/kpn_apply.cu).
+Ported so far: everything the JAX package does to denoise on one device —
+joint, group and rgb frame denoisers (inference/pipeline.py), whole-frame
+or tiled (inference/tiled.py), every preset's model (UNet, tiramisu,
+multi-scale, KPN head), PSNR/SSIM/MS-SSIM, the sequence harness
+(inference/sequence.py) and the `denoise` and `eval` commands; with the
+KPN filter apply (ops/kpn_apply.py) and the fused ingest
+(ops/fused_ingest.py) as CUDA kernels.
 """
 
 __version__ = "0.1.0"

@@ -1,23 +1,30 @@
-"""Command line of the PyTorch port: the `denoise` subcommand.
+"""Command line of the PyTorch port: the `denoise` and `eval` subcommands.
 
     deepdenoiser-torch denoise --preset kpn-hq --weights weights/kpn_hq_ema_f16.npz \\
         --frame frame_dir_or_multilayer.exr --out out.exr [--passes] [--device cpu]
     deepdenoiser-torch denoise --config experiment.json --weights ... --mode group ...
+    deepdenoiser-torch eval --preset flagship-hq --weights weights/flagship_hq_ema_f16.npz \\
+        --renders render_root
 
-The port of deepdenoiser_tpu/cli.py's denoise from release weights, in
-group, joint and rgb mode. The experiment comes from --preset or from a
---config JSON (config.save's format, as either package writes it); a JSON
-is also the way to settings no preset carries, such as
-infer.use_pallas_ingest for the fused ingest kernels. It runs on the card
-("cuda") unless --device says otherwise and fails when there is no card.
-The other subcommands (train, eval, prepare-data, synth-data) and
---checkpoint are not ported yet.
+The port of deepdenoiser_tpu/cli.py's denoise and eval from release
+weights, in group, joint and rgb mode. The experiment comes from --preset
+or from a --config JSON (config.save's format, as either package writes
+it); a JSON is also the way to settings no preset carries: infer.tile,
+infer.tile_batch and infer.stitch for tiled frames,
+infer.use_pallas_ingest for the fused ingest kernels, data.pass_scales.
+`eval` prints the sequence harness's JSON report (per-frame latency, PSNR
+and SSIM against the ground truth of a render root). Both run on the card
+("cuda") unless --device says otherwise and fail when there is no card.
+--checkpoint (training checkpoints) comes with the training slice and
+exits 2; the other subcommands (train, prepare-data, synth-data) are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
 from pathlib import Path
 
@@ -30,17 +37,20 @@ def _load_frame(path: Path):
     return exr.load_multilayer_exr(path)
 
 
+def _load_config(args):
+    from deepdenoiser_tpu_torch import config as config_lib
+
+    cfg = config_lib.load(args.config) if args.config else config_lib.PRESETS[args.preset]
+    return config_lib.validate_channels(cfg)
+
+
 def cmd_denoise(args) -> int:
     from deepdenoiser_tpu_torch import config as config_lib
     from deepdenoiser_tpu_torch import weights_io
     from deepdenoiser_tpu_torch.data import exr
     from deepdenoiser_tpu_torch.inference import pipeline
 
-    if args.config:
-        cfg = config_lib.load(args.config)
-    else:
-        cfg = config_lib.PRESETS[args.preset]
-    cfg = config_lib.validate_channels(cfg)
+    cfg = _load_config(args)
     mcfg = cfg.model
     mode = args.mode or cfg.data.mode
     if args.mode and args.mode != cfg.data.mode:
@@ -88,6 +98,23 @@ def cmd_denoise(args) -> int:
     return 0
 
 
+def cmd_eval(args) -> int:
+    """Full-frame PSNR/SSIM against ground truth over a render root."""
+    from deepdenoiser_tpu_torch import weights_io
+    from deepdenoiser_tpu_torch.inference import sequence
+
+    cfg = _load_config(args)
+    params = weights_io.load_release_params(args.weights)
+    report = sequence.evaluate_render_root(
+        cfg.model, cfg.infer, params, args.renders, mode=cfg.data.mode,
+        scales=dict(cfg.data.pass_scales) or None,
+        groups=tuple(cfg.data.groups), use_flags=cfg.data.use_flags,
+        device=args.device,
+    )
+    print(json.dumps(report, indent=2))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     from deepdenoiser_tpu_torch import config as config_lib
 
@@ -96,12 +123,19 @@ def build_parser() -> argparse.ArgumentParser:
         description="Monte-Carlo render denoiser, PyTorch/CUDA port",
     )
     sub = p.add_subparsers(dest="command", required=True)
+
+    def common(sp):
+        src = sp.add_mutually_exclusive_group(required=True)
+        src.add_argument("--preset", choices=sorted(config_lib.PRESETS))
+        src.add_argument("--config", help="experiment JSON (config.save's format)")
+        sp.add_argument("--weights", help="release npz weight file (weights/*.npz)")
+        sp.add_argument("--checkpoint",
+                        help="training checkpoint directory (comes with the training slice)")
+        sp.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; the CPU only when asked)")
+
     sp = sub.add_parser("denoise", help="denoise a full frame")
-    src = sp.add_mutually_exclusive_group(required=True)
-    src.add_argument("--preset", choices=sorted(config_lib.PRESETS))
-    src.add_argument("--config", help="experiment JSON (config.save's format)")
-    sp.add_argument("--weights", required=True,
-                    help="release npz weight file (weights/*.npz)")
+    common(sp)
     sp.add_argument("--frame", required=True,
                     help="frame EXR directory or multilayer EXR file")
     sp.add_argument("--out", required=True)
@@ -109,14 +143,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="must agree with the config's data mode")
     sp.add_argument("--passes", action="store_true",
                     help="write all denoised passes, not just combined")
-    sp.add_argument("--device", default="cuda",
-                    help="torch device (default cuda; the CPU only when asked)")
     sp.set_defaults(fn=cmd_denoise)
+
+    sp = sub.add_parser("eval", help="PSNR/SSIM + latency over a render root")
+    common(sp)
+    sp.add_argument("--renders", required=True,
+                    help="render root: <frame>/ground_truth and <frame>/spp<N>_seed<K> dirs")
+    sp.set_defaults(fn=cmd_eval)
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.checkpoint:
+        print("error: --checkpoint needs the training slice of the port, which is not "
+              "here yet; pass --weights with a release npz file", file=sys.stderr)
+        return 2
+    if not args.weights:
+        print("error: --weights is required", file=sys.stderr)
+        return 2
     return args.fn(args)
 
 

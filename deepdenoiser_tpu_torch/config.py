@@ -6,10 +6,13 @@ The port of deepdenoiser_tpu/config.py for inference. `ModelConfig`
 field name and default, so the same values describe the same experiment in
 both packages and a JSON saved by either loads in the other. Training is
 not ported yet: `ExperimentConfig.train` holds that section as a plain
-dict, read by nothing here. Presets: `flagship-max` and `kpn` (group-mode
-2-slot KPN), `kpn-hq` (joint 8-slot KPN), `flagship-hq` and `flagship-mc`
-(joint residual, stride-1 stem), `flagship` (joint residual,
-space-to-depth stem) and `unet-small`.
+dict, read by nothing here. `PRESETS` holds every preset of the JAX
+package under its name: `flagship-max` and `kpn` (group-mode 2-slot KPN),
+`kpn-hq` (joint 8-slot KPN), `flagship-hq` and `flagship-mc` (joint
+residual, stride-1 stem), `flagship` and `flagship-flags` (joint residual,
+space-to-depth stem; the latter flag-conditioned), `tiramisu`,
+`tiramisu-fast` and `tiramisu-lt1` (joint residual FC-DenseNets),
+`unet-multiscale` (no release weights) and `unet-small`.
 """
 
 from __future__ import annotations
@@ -54,17 +57,17 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class InferenceConfig:
     """Full-frame inference settings (same fields as the JAX package's).
-
-    This slice runs whole-frame mode only (tile=0, no tile_batch, exact
-    stitching, no spatial sharding); the other settings raise in
-    inference/pipeline.py.
-    """
+    spatial_shard belongs to the multi-device modes and raises in
+    inference/pipeline.py."""
 
     tile: int = 0  # core tile size; 0 = whole-frame
-    tile_batch: int = 0
+    tile_batch: int = 0  # tiles per network call; 0 = all tiles in one batch
     halo: int = 0  # 0 = derive from the model's certified RF bound
+    # 'exact' center-crop reassembly (equal to the whole frame when halo >=
+    # the certified bound) or 'feather' cosine overlap blending
     stitch: str = "exact"
-    # Whole-frame border pad override; -1 = the certified halo.
+    # Whole-frame border pad override (ignored when tiling, where the
+    # certified halo is a correctness requirement); -1 = the certified halo.
     border: int = -1
     compute_dtype: str = "bfloat16"
     spatial_shard: bool = False
@@ -135,7 +138,14 @@ def _unet64(**kw) -> ModelConfig:
     )
 
 
-_EMA = {"ema_decay": 0.999}  # the JAX presets' one non-default training value
+def _tiramisu(**kw) -> ModelConfig:
+    return ModelConfig(
+        backbone="tiramisu", growth_rate=16, layers_per_block=4, depth=3,
+        compute_dtype="bfloat16", predict_residual=True, act="leaky_relu", **kw,
+    )
+
+
+_EMA = {"ema_decay": 0.999}  # the JAX presets' non-default training value
 
 PRESETS: Dict[str, ExperimentConfig] = {
     # joint 4-group single pass, space-to-depth stem, base width 96
@@ -147,6 +157,19 @@ PRESETS: Dict[str, ExperimentConfig] = {
             act="leaky_relu",
         ),
         data=DataConfig(mode="joint"),
+        train=dict(_EMA),
+        infer=InferenceConfig(border=32),
+    ),
+    # flagship's model trained across frames that lack some light groups:
+    # one presence plane per group after the 41 channels
+    "flagship-flags": ExperimentConfig(
+        name="flagship-flags",
+        model=ModelConfig(
+            backbone="unet", base_width=96, depth=3, convs_per_level=2,
+            stem_stride=2, compute_dtype="bfloat16", predict_residual=True,
+            act="leaky_relu",
+        ),
+        data=DataConfig(mode="joint", use_flags=True),
         train=dict(_EMA),
         infer=InferenceConfig(border=32),
     ),
@@ -183,6 +206,40 @@ PRESETS: Dict[str, ExperimentConfig] = {
     "unet-small": ExperimentConfig(
         name="unet-small",
         model=ModelConfig(backbone="unet", base_width=32, depth=3, n_scales=1),
+    ),
+    # multi-scale wrapper over a base-48 UNet; no release weights
+    "unet-multiscale": ExperimentConfig(
+        name="unet-multiscale",
+        model=ModelConfig(backbone="unet", base_width=48, depth=3, n_scales=3,
+                          compute_dtype="bfloat16", predict_residual=True,
+                          act="leaky_relu"),
+        data=DataConfig(mode="joint"),
+        train=dict(_EMA, scale_supervision_weight=0.5),
+    ),
+    # FC-DenseNet with full dense concats on the up path
+    "tiramisu": ExperimentConfig(
+        name="tiramisu",
+        model=_tiramisu(),
+        data=DataConfig(mode="joint"),
+        train=dict(_EMA),
+        infer=InferenceConfig(border=32),
+    ),
+    # the same with 1x1-bottlenecked up-path joins
+    "tiramisu-fast": ExperimentConfig(
+        name="tiramisu-fast",
+        model=_tiramisu(up_compress=64),
+        data=DataConfig(mode="joint"),
+        train=dict(_EMA),
+        infer=InferenceConfig(border=32),
+    ),
+    # tiramisu-fast with the two full-resolution dense blocks thinned to
+    # one layer each
+    "tiramisu-lt1": ExperimentConfig(
+        name="tiramisu-lt1",
+        model=_tiramisu(up_compress=64, layers_top=1),
+        data=DataConfig(mode="joint"),
+        train=dict(_EMA),
+        infer=InferenceConfig(border=32),
     ),
     # flagship-max's model with the certified halo as the border
     "kpn": ExperimentConfig(
@@ -234,8 +291,8 @@ def output_channels(data: DataConfig) -> int:
 
 def validate_channels(cfg: ExperimentConfig) -> ExperimentConfig:
     """Set the model's channel counts from the data mode (group 14 in / 6
-    out, joint 41 / 24, rgb 10 / 3), as the JAX training loop's
-    _validate_channels does."""
+    out, joint 41 / 24 or 45 / 24 with flags, rgb 10 / 3), as the JAX
+    training loop's _validate_channels does."""
     want_in, want_out = input_channels(cfg.data), output_channels(cfg.data)
     m = cfg.model
     if m.in_channels != want_in or m.out_channels != want_out:

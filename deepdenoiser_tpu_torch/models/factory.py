@@ -2,22 +2,24 @@
 spatial multiple).
 
 The port of deepdenoiser_tpu/models/factory.py. `ModelConfig` keeps the
-JAX field names, so a config JSON loads in both packages. Ported here: the
-UNet backbone (stride-1 or space-to-depth stem), the KPN head in joint
-mode (24 output channels, 8 slots) and in group or rgb mode (the leading
-3*kpn_slots input channels are the signal), and the residual branch. The
-tiramisu backbone and multi-scale models raise NotImplementedError.
+JAX field names, so a config JSON loads in both packages. Backbones: the
+UNet (stride-1 or space-to-depth stem) and the tiramisu, either one alone
+or under the multi-scale wrapper (n_scales > 1). Heads: the KPN head in
+joint mode (24 output channels, 8 slots) and in group or rgb mode (the
+leading 3*kpn_slots input channels are the signal), or the residual
+branch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Tuple, Union
 
 import torch
 from torch import nn
 
-from deepdenoiser_tpu_torch.models import kpn
+from deepdenoiser_tpu_torch.models import kpn, layers, multiscale
+from deepdenoiser_tpu_torch.models.tiramisu import Tiramisu, TiramisuSpec
 from deepdenoiser_tpu_torch.models.unet import UNet, UNetSpec
 
 Tensor = torch.Tensor
@@ -59,28 +61,26 @@ class ModelConfig:
         return DTYPES[self.compute_dtype]
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.backbone != "unet":
-        raise NotImplementedError(f"backbone {cfg.backbone!r} is not ported yet")
-    if cfg.n_scales > 1:
-        raise NotImplementedError("multi-scale models are not ported yet")
-
-
 class DenoiserModel(nn.Module):
-    """Top-level module: UNet backbone, optionally KPN-headed or residual.
+    """Top-level module: (multi-scale) backbone, optionally KPN-headed or
+    residual.
 
     forward(x) takes the encoded feature stack, NHWC fp32, and returns
-    NHWC fp32. Child names follow the Flax tree (UNet_0,
-    KernelPredictionHead_0), so release weights map by path.
+    NHWC fp32. Child names follow the Flax tree: the backbone is UNet_0 or
+    Tiramisu_0 directly under the model, with or without the multi-scale
+    wrapper or the head around it, and the head's temperature is
+    KernelPredictionHead_0.kernel_temp; so release weights map by path.
     """
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         out_ch = cfg.kpn_slots * cfg.kpn_size**2 if cfg.kernel_prediction else cfg.out_channels
         spec = _backbone_spec(cfg)
-        self.UNet_0 = UNet(spec, cfg.in_channels, out_ch, dtype=cfg.dtype)
+        if cfg.backbone == "unet":
+            self.UNet_0 = UNet(spec, cfg.in_channels, out_ch, dtype=cfg.dtype)
+        else:
+            self.Tiramisu_0 = Tiramisu(spec, cfg.in_channels, out_ch, dtype=cfg.dtype)
         if cfg.kernel_prediction:
             if cfg.out_channels == 24 and 3 * cfg.kpn_slots != cfg.out_channels:
                 raise ValueError(
@@ -90,10 +90,33 @@ class DenoiserModel(nn.Module):
                 cfg.kpn_size, cfg.kpn_slots, logit_norm=cfg.kpn_logit_norm
             )
 
-    def forward(self, x: Tensor) -> Tensor:
+    @property
+    def net(self):
+        """The network under the head: the backbone, or its multi-scale
+        wrapper (which owns no parameter and is not a registered child)."""
         cfg = self.cfg
+        backbone = self.UNet_0 if cfg.backbone == "unet" else self.Tiramisu_0
+        return multiscale.MultiScale(backbone, cfg.n_scales) if cfg.n_scales > 1 else backbone
+
+    def forward(self, x: Tensor, return_scales: bool = False) -> Union[Tensor, List[Tensor]]:
+        cfg = self.cfg
+        if return_scales:
+            assert cfg.n_scales > 1 and not cfg.kernel_prediction, (
+                "return_scales needs a multi-scale, non-KPN model"
+            )
+            outs = self.net(x, return_scales=True)  # finest -> coarsest
+            if cfg.predict_residual:
+                # anchor every scale to its downsampled noisy signal
+                signal = _slice_signal(cfg, x)
+                fixed = []
+                for s, o in enumerate(outs):
+                    fixed.append(o + signal.to(o.dtype))
+                    if s < len(outs) - 1:
+                        signal = layers.avg_downsample(signal, 2)
+                outs = fixed
+            return outs
         x = x.contiguous()  # the signal slices below need channel stride 1
-        out = self.UNet_0(x)
+        out = self.net(x)
         if cfg.kernel_prediction:
             # KPN filters the encoded (log-demod) signal channels. Joint
             # mode: slot order g0_d, g0_i, g1_d, ... as decode_joint_outputs
@@ -137,21 +160,30 @@ def signal_indices(cfg: ModelConfig) -> Tuple[int, ...]:
     )
 
 
-def _backbone_spec(cfg: ModelConfig) -> UNetSpec:
+def _backbone_spec(cfg: ModelConfig) -> Union[UNetSpec, TiramisuSpec]:
     if cfg.backbone == "unet":
         return UNetSpec(
             base_width=cfg.base_width, depth=cfg.depth,
             convs_per_level=cfg.convs_per_level, act=cfg.act,
             stem_stride=cfg.stem_stride, remat=cfg.remat,
         )
-    raise NotImplementedError(f"backbone {cfg.backbone!r} is not ported yet")
+    if cfg.backbone == "tiramisu":
+        return TiramisuSpec(
+            growth_rate=cfg.growth_rate, layers_per_block=cfg.layers_per_block,
+            depth=cfg.depth, act=cfg.act, stem_stride=cfg.stem_stride,
+            up_compress=cfg.up_compress, layers_top=cfg.layers_top,
+        )
+    raise ValueError(f"unknown backbone {cfg.backbone!r}")
 
 
 def rf_state(cfg: ModelConfig):
-    """Certified per-side RF bounds for the full model (backbone + KPN)."""
+    """Certified per-side RF bounds for the full model (backbone +
+    multi-scale + KPN): the tiling engine's source for the halo."""
+    spec = _backbone_spec(cfg)
     if cfg.n_scales > 1:
-        raise NotImplementedError("multi-scale models are not ported yet")
-    s = _backbone_spec(cfg).rf_state()
+        s = multiscale.multiscale_rf_state(spec.rf_state, cfg.n_scales)
+    else:
+        s = spec.rf_state()
     if cfg.kernel_prediction:
         s = s.conv(cfg.kpn_size)  # per-pixel filter = one more kxk window
     return s
@@ -167,9 +199,10 @@ def halo(cfg: ModelConfig) -> int:
 
 
 def spatial_multiple(cfg: ModelConfig) -> int:
+    m = _backbone_spec(cfg).spatial_multiple
     if cfg.n_scales > 1:
-        raise NotImplementedError("multi-scale models are not ported yet")
-    return _backbone_spec(cfg).spatial_multiple
+        m = multiscale.multiscale_spatial_multiple(m, cfg.n_scales)
+    return m
 
 
 def build_model(cfg: ModelConfig) -> DenoiserModel:

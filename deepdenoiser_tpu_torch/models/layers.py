@@ -16,7 +16,8 @@ Three details carry the JAX semantics across:
     order and one conv runs.
 The JAX UpSample is a sub-pixel conv at low resolution; nearest-up(2)
 then a 3x3 SAME conv with the same kernel is the same function, and that
-is the form used here.
+is the form used here. nearest_upsample and avg_downsample are the NHWC
+helpers of the multi-scale pyramid.
 
 space_to_depth / depth_to_space are NHWC like the JAX functions and keep
 their channel order, (dy*f + dx)*C + c, which is not F.pixel_unshuffle's
@@ -206,10 +207,27 @@ class UpSample(nn.Module):
         self.ConvBlock_0 = ConvBlock(in_channels, features, kernel, act=act,
                                      dtype=dtype)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Union[Tensor, Sequence[Tensor]]) -> Tensor:
+        if not isinstance(x, Tensor):
+            x = torch.cat(tuple(x), dim=1)
         x = F.interpolate(x.to(self.ConvBlock_0.dtype), scale_factor=self.factor,
                           mode="nearest")
         return self.ConvBlock_0(x)
+
+
+def nearest_upsample(x: Tensor, factor: int = 2) -> Tensor:
+    """Nearest-neighbour upsample, NHWC: every pixel repeated factor x
+    factor times."""
+    n, h, w, c = x.shape
+    x = x[:, :, None, :, None, :].expand(n, h, factor, w, factor, c)
+    return x.reshape(n, h * factor, w * factor, c)
+
+
+def avg_downsample(x: Tensor, factor: int = 2) -> Tensor:
+    """Average-pool downsample used to build input pyramids, NHWC."""
+    n, h, w, c = x.shape
+    assert h % factor == 0 and w % factor == 0, (h, w, factor)
+    return x.reshape(n, h // factor, factor, w // factor, factor, c).mean(dim=(2, 4))
 
 
 def space_to_depth(x: Tensor, factor: int = 2) -> Tensor:

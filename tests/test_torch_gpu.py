@@ -311,3 +311,61 @@ def test_flagship_max_group_frame_on_the_card_matches_the_cpu_port(cuda):
     for name, ref in want.items():
         err = (got[name].cpu() - ref).abs().max()
         assert err <= 1e-4 * ref.abs().max(), (name, float(err))
+
+
+# --------------------------------------------------------------------------
+# tiled frames
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(8, 96, 96, 3), (3, 50, 70, 3)], ids=["tile-batch", "ragged"])
+def test_kpn_kernel_matches_plain_version_on_a_tile_batch(cuda, shape):
+    """The shape class of tiled frames: several network tiles per launch."""
+    noisy, weights = _inputs(shape, 5, cuda, seed=2)
+    kpn_apply.reset_launches()
+    got = kpn_apply.apply_per_pixel_kernels(noisy, weights, 5)
+    assert kpn_apply.launches == 1
+    want = kpn.apply_per_pixel_kernels(noisy, weights, 5)
+    torch.cuda.synchronize()
+    assert _within(got, want)
+
+
+@pytest.mark.parametrize("infer_kw,launches", [
+    (dict(tile=32), 2),                  # 4 groups x 6 tiles in one batch, 2 slots
+    (dict(tile=32, tile_batch=5), 10),   # 24 tiles in 5 chunks of 5
+    (dict(tile=32, tile_batch=5, stitch="feather"), 10),
+], ids=["tiled", "chunks", "feather"])
+def test_tiled_group_frame_equals_the_whole_frame_on_the_card(cuda, infer_kw, launches):
+    """A small `kpn` model (group mode, release weights), fp32 with TF32 off:
+    the tiled frame equals the whole frame on the same padded plane, and the
+    kernel is launched once per slot and tile batch. Feathering blends
+    uncertified halo pixels in, so it is held close, not equal."""
+    h, w = 64, 96
+    noisy = synthetic.add_mc_noise(synthetic.generate_clean_passes(h, w, seed=5), spp=4, seed=6)
+    cfg = config.validate_channels(config.PRESETS["kpn"])
+    params = weights_io.load_release_params(REPO / "weights" / "kpn_ema_f16.npz")
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        whole, _ = pipeline.make_group_frame_denoiser(
+            cfg.model, dataclasses.replace(cfg.infer, compute_dtype="float32"), h, w, params)
+        tiled_den, grid = pipeline.make_group_frame_denoiser(
+            cfg.model, dataclasses.replace(cfg.infer, compute_dtype="float32", **infer_kw),
+            h, w, params)
+        assert (grid.rows, grid.cols) == (2, 3)
+        want = whole(noisy)
+        kpn_apply.reset_launches()
+        got = tiled_den(noisy)
+        torch.cuda.synchronize()
+        assert kpn_apply.launches == launches
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    assert set(got) == set(want)
+    feather = infer_kw.get("stitch") == "feather"
+    for name, ref in want.items():
+        diff, scale = (got[name] - ref).abs(), float(ref.abs().max().clamp_min(1e-30))
+        assert torch.isfinite(got[name]).all()
+        if feather:
+            assert float(diff.max()) <= 0.1 * scale and float(diff.mean()) <= 2e-3 * scale, name
+        else:
+            assert float(diff.max()) <= 1e-4 * scale, (name, float(diff.max()))

@@ -53,6 +53,9 @@ def test_importing_every_port_module_leaves_jax_out():
     mods = _port_modules()
     assert "deepdenoiser_tpu_torch.ops.kpn_apply" in mods
     assert "deepdenoiser_tpu_torch.ops.fused_ingest" in mods
+    for new in ("models.tiramisu", "models.multiscale", "inference.sequence", "inference.tiled",
+                "data.prepare", "ops.metrics", "cli"):
+        assert f"deepdenoiser_tpu_torch.{new}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -146,12 +149,31 @@ def test_cli_without_device_raises(no_card, tmp_path, preset, weights):
     (dict(infer=dict(spatial_shard=True)), "spatial"),
 ])
 def test_later_slice_options_raise_not_implemented(kw, match):
+    """Spatial sharding belongs to the multi-device slice and raises; the
+    tiled options are ported and build; use_flags is ported and wants the
+    flag-conditioned model's 45 input channels."""
     kw = dict(kw)
     cfg = config.validate_channels(config.PRESETS["flagship-hq"])
     infer = dataclasses.replace(cfg.infer, **kw.pop("infer", {}))
     params = weights_io.load_release_params(REPO / "weights" / "flagship_hq_ema_f16.npz")
-    with pytest.raises(NotImplementedError, match=match):
-        pipeline.make_joint_frame_denoiser(cfg.model, infer, 32, 48, params, device="cpu", **kw)
+
+    def make():
+        return pipeline.make_joint_frame_denoiser(cfg.model, infer, 32, 48, params,
+                                                  device="cpu", **kw)
+    if match == "spatial":
+        with pytest.raises(NotImplementedError, match="multi-device"):
+            make()
+        return
+    den, grid = make()
+    noisy = synthetic.add_mc_noise(synthetic.generate_clean_passes(32, 48, seed=0), spp=4, seed=1)
+    if match == "use_flags":
+        with pytest.raises(RuntimeError, match="channels"):  # 45 planes into a 41-channel stem
+            den(noisy)
+        return
+    if infer.tile:  # tiled: the certified halo, not the 32 px border
+        assert grid.halo >= factory.halo(cfg.model) > cfg.infer.border
+    out = den(noisy)
+    assert tuple(out["combined"].shape) == (32, 48, 3) and torch.isfinite(out["combined"]).all()
 
 
 @pytest.mark.parametrize("factory_fn,preset,weights", [
@@ -170,13 +192,20 @@ def test_group_and_rgb_later_slice_options_raise_not_implemented(
                                    convs_per_level=1, act="leaky_relu", predict_residual=True)
     infer = dataclasses.replace(config.InferenceConfig(), **infer_kw)
     params = weights_io.load_release_params(REPO / "weights" / weights)
-    with pytest.raises(NotImplementedError, match=match):
-        factory_fn(mcfg, infer, 32, 48, params, device="cpu")
+    if match == "spatial":  # the multi-device slice's
+        with pytest.raises(NotImplementedError, match="multi-device"):
+            factory_fn(mcfg, infer, 32, 48, params, device="cpu")
+        return
+    # tiled and feathered frames are ported: they build and run
+    den, grid = factory_fn(mcfg, infer, 32, 48, params, device="cpu")
+    noisy = synthetic.add_mc_noise(synthetic.generate_clean_passes(32, 48, seed=0), spp=4, seed=1)
+    out = den(noisy)
+    assert tuple(out["combined"].shape) == (32, 48, 3) and torch.isfinite(out["combined"]).all()
 
 
 def test_group_frame_with_a_mesh_raises_not_implemented():
     cfg = config.validate_channels(config.PRESETS["flagship-max"])
     params = weights_io.load_release_params(REPO / "weights" / "kpn_ema_f16.npz")
-    with pytest.raises(NotImplementedError, match="spatial"):
+    with pytest.raises(NotImplementedError, match="multi-device"):
         pipeline.make_group_frame_denoiser(cfg.model, cfg.infer, 32, 48, params,
                                            device="cpu", mesh=object())

@@ -137,5 +137,13 @@ def test_receptive_field_and_spatial_multiple_match_jax(preset_kw):
     (dict(n_scales=2), "multi-scale"),
 ])
 def test_later_slices_raise_not_implemented(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        factory.build_model(factory.ModelConfig(in_channels=41, **kw))
+    """The tiramisu backbone and multi-scale models, which earlier slices of
+    the port refused, build now; a backbone nobody knows still raises."""
+    cfg = factory.ModelConfig(in_channels=41, base_width=8, depth=2, **kw)
+    model = factory.build_model(cfg)
+    assert any(k.startswith("Tiramisu_0." if "tiramisu" in match else "UNet_0.")
+               for k in model.state_dict())
+    assert factory.spatial_multiple(cfg) == jfactory.spatial_multiple(jfactory.ModelConfig(
+        in_channels=41, base_width=8, depth=2, **kw))
+    with pytest.raises(ValueError, match="unknown backbone"):
+        factory.build_model(factory.ModelConfig(backbone="resnet"))

@@ -242,10 +242,13 @@ def test_batched_whole_frame_apply_equals_frame_by_frame():
                                atol=0, rtol=0)
     with pytest.raises(ValueError, match="channels"):
         tiled.make_tiled_apply(net, grid, 3, batch_dims=1)(frames)
-    with pytest.raises(NotImplementedError, match="tiled"):
-        tiled.make_tiled_apply(net, tiled.plan_grid(20, 28, 8, 5, 8), 2)
-    with pytest.raises(NotImplementedError, match="tiled"):
-        tiled.make_tiled_apply(net, grid, 2, feather=True)
+    # a tiled grid and the feathered stitch build too (tests/test_torch_tiled.py
+    # holds them to the whole frame); a pointwise net makes them exact here
+    tgrid = tiled.plan_grid(20, 28, 8, 5, 8)
+    want = frames[0, ..., :2] * 3
+    for kw in (dict(), dict(feather=True)):
+        got = tiled.make_tiled_apply(lambda x: x[..., :2] * 3, tgrid, 2, **kw)(frames[0])
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
 
 
 # --------------------------------------------------------------------------
