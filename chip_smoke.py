@@ -4,8 +4,10 @@
 
 Drives the port's main paths through the entry points a user calls —
 `deepdenoiser-torch denoise` (cli.main) and the frame factories of
-inference/pipeline.py — at 1080p with the release weights, and checks every
-CUDA kernel against its plain PyTorch version on the card. Phases, each
+inference/pipeline.py at 1080p with the release weights; `synth-data`,
+`prepare-data`, `train` and `denoise --checkpoint` for kpn-hq at the
+training recipe's batch and crop — and checks every CUDA kernel against
+its plain PyTorch version on the card. Phases, each
 printing its results on its own lines; any failure raises and the run exits
 non-zero:
 
@@ -50,9 +52,26 @@ non-zero:
   15. sequence   run_sequence over 4 noisy 1080p frames with flagship-hq (PSNR
                  and SSIM on the device), and `deepdenoiser-torch eval` over a
                  small render root written to a temporary directory
-  16. one JSON line {"kernels": [...]}
-  (with --profile, the frame phases also print device time by kernel and the
-  device's busy share, from torch.profiler)
+  16. train-kernels  K1's backward entry points (d_w, d_noisy) vs the plain
+                 backward at the training shape (16,96,96,3), the joint 1080p
+                 plane, k=3 and C=1, 4 (1e-5 + 1e-5*|ref|); device times by
+                 CUDA-graph replay, bytes, bound, the plain version's time
+  17. train-parity   one make_train_step step of a small joint KPN (fp32,
+                 TF32 off) on the card vs the CPU from the same state and batch:
+                 loss and grad_norm within rel 1e-5, parameters within 2 lr,
+                 and within 1e-3 lr wherever |grad| > 1e-5 of the global norm
+  18. train      kpn-hq, batch 16, crop 96: synth-data -> prepare-data ->
+                 `train` 20 steps (8 forward, 8 d_w and 0 d_noisy launches a
+                 step, counted apart from the eval's; eval and preview at step
+                 20) -> `train` resumed to 30 (the metrics file continues) ->
+                 `denoise --checkpoint --ema` on the 1080p frame; ms/step,
+                 samples/s, Mpx/s, peak memory, the loss curve; where a step's
+                 time goes (the loader alone, fit's loop body whole and split);
+                 then 100 make_train_step steps on one fixed batch (the loss
+                 must halve) and flagship-hq's ms/step over 30 beside it
+  19. one JSON line {"kernels": [...]}
+  (with --profile, the frame phases and the train steps also print device
+  time by kernel and the device's busy share, from torch.profiler)
   then the card's name and power limit as nvidia-smi prints them, and last
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -65,9 +84,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -182,7 +203,8 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     from deepdenoiser_tpu_torch.ops import fused_ingest, kpn_apply
 
-    return {"kpn_apply": kpn_apply.launches, **fused_ingest.launches}
+    return {"kpn_apply": kpn_apply.launches, "kpn_apply_bwd_weights": kpn_apply.bwd_weights_launches,
+            "kpn_apply_bwd_noisy": kpn_apply.bwd_noisy_launches, **fused_ingest.launches}
 
 
 def expect_launches(what: str, got: dict, frames: int = 1, **per_frame: int) -> None:
@@ -1328,10 +1350,483 @@ def phase_sequence(frame: dict, card: dict, n_frames: int = 4) -> dict:
     return report
 
 
-def _kernel_row(name: str, source: str, replaces: str, launches: int, t: dict, **extra) -> dict:
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_CROP = 16, 96  # the JAX package's recipe (tools/pretrain_flagship.py)
+TRAIN_STEPS, RESUME_STEPS = 20, 30  # the first `train` call, and the resumed one
+TRAIN_WARMUP = 5  # steps left out of the per-step medians
+# the fixed-batch overfit check runs kpn-hq OVERFIT_STEPS steps (loss at
+# 30 steps read 0.484x the first; 100 leave the 0.5x bar a margin);
+# flagship-hq, which diverges at this lr, is timed over TIMED_STEPS
+OVERFIT_STEPS, TIMED_STEPS, OVERFIT_LR = 100, 30, 1e-3
+LOADER_BATCHES = 20  # batches timed for the loader alone and for fit's loop split
+BWD_REPLACES = "deepdenoiser_tpu/ops/kpn_pallas.py:158"
+BWD_ENTRIES = {"bwd_weights": "kpn_apply_bwd_weights_f32", "bwd_noisy": "kpn_apply_bwd_noisy_f32"}
+
+
+def _bwd_work(shape, k) -> tuple:
+    """(bytes, operations) of one backward entry point: C + C + k*k floats
+    per pixel read or written once (noisy + g in, d_w out; or g + w in,
+    d_noisy out), and C*k*k multiply-adds."""
+    n, h, w, c = shape
+    px = n * h * w
+    return px * (2 * c + k * k) * 4, px * c * k * k * 2
+
+
+def _bwd_inputs(shape, k, gen):
+    """noisy, weights, g on the card as training hands them to the
+    backward: with C=3 the noisy slot is a 3-channel slice of the
+    41-channel fp32 input and g a 3-channel range of the 24-channel output
+    gradient; the weights a permuted view of planar softmax output."""
+    n, h, w, c = shape
+    dev = "cuda"
+    if c == 3:
+        noisy = torch.rand((n, h, w, 41), generator=gen, device=dev)[..., 9:12]
+        g = torch.randn((n, h, w, 24), generator=gen, device=dev)[..., 3:6]
+    else:
+        noisy = torch.rand(shape, generator=gen, device=dev)
+        g = torch.randn(shape, generator=gen, device=dev)
+    logits = torch.randn((n, k * k, h, w), generator=gen, device=dev)
+    return noisy, torch.softmax(logits, dim=1).permute(0, 2, 3, 1), g
+
+
+def phase_train_kernels(card: dict) -> dict:
+    """K1's two backward entry points against the plain backward at the
+    training shape, the joint 1080p plane, and k=3 / C=1 and C=4; device
+    time of each at the first two shapes by CUDA-graph replay over buffer
+    sets larger than the L2, in turns. Returns entry -> timing at the
+    training shape, with the plane's under "plane"."""
+    from deepdenoiser_tpu_torch.models import kpn
+    from deepdenoiser_tpu_torch.ops import kpn_apply
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    cases = [((TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3), 5, "train"),
+             ((1, PLANE_H, PLANE_W, 3), 5, "plane"),
+             ((2, 130, 170, 1), 3, None), ((1, 37, 53, 4), 5, None), ((3, 61, 45, 4), 3, None)]
+    worst = {e: 0.0 for e in BWD_ENTRIES}
+    timings = {e: {} for e in BWD_ENTRIES}
+    for shape, k, path in cases:
+        noisy, weights, g = _bwd_inputs(shape, k, gen)
+        got = {"bwd_weights": kpn_apply.bwd_weights_cuda(noisy, g, k),
+               "bwd_noisy": kpn_apply.bwd_noisy_cuda(g, weights, k)}
+        ref_n, ref_w = kpn.apply_per_pixel_kernels_bwd(noisy, weights, g, k, True)
+        torch.cuda.synchronize()
+        errs = []
+        for entry, ref in (("bwd_weights", ref_w), ("bwd_noisy", ref_n)):
+            err = (got[entry] - ref).abs()
+            bad = int((err > TOL_ABS + TOL_REL * ref.abs()).sum())
+            worst[entry] = max(worst[entry], float(err.max()))
+            errs.append(f"{entry} max|d|={float(err.max()):.3e} over tolerance={bad}")
+            if bad or not torch.isfinite(got[entry]).all():
+                raise AssertionError(f"kpn_apply.{entry} disagrees with the plain backward at "
+                                     f"{shape} k={k}")
+        log(f"[train-kernels] {shape} k={k}: " + "; ".join(errs))
+        del noisy, weights, g, got, ref_n, ref_w
+        if path is None:
+            continue
+        nbytes, flops = _bwd_work(shape, k)
+        sets = max(2, min(16, math.ceil(4 * H100_L2_BYTES / nbytes)))
+        bufs = [_bwd_inputs(shape, k, gen) for _ in range(sets)]
+        calls = {"bwd_weights": [lambda b=b: kpn_apply.bwd_weights_cuda(b[0], b[2], k) for b in bufs],
+                 "bwd_noisy": [lambda b=b: kpn_apply.bwd_noisy_cuda(b[2], b[1], k) for b in bufs]}
+        plain = {"bwd_weights": [lambda b=b: kpn.apply_per_pixel_kernels_bwd(*b, k, False)
+                                 for b in bufs],
+                 "bwd_noisy": [lambda b=b: kpn.apply_per_pixel_kernels_bwd(*b, k, True)
+                               for b in bufs]}
+        w1, n1 = graph_ms(calls["bwd_weights"]), graph_ms(calls["bwd_noisy"])
+        n2, w2 = graph_ms(calls["bwd_noisy"]), graph_ms(calls["bwd_weights"])
+        ms = {"bwd_weights": (w1 + w2) / 2, "bwd_noisy": (n1 + n2) / 2}
+        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        ops_ms = flops / H100_FP32_FLOP_PER_S * 1e3
+        for entry in BWD_ENTRIES:
+            plain_ms = graph_ms(plain[entry], replays=3)
+            eager_ms = cuda_ms(rotating(calls[entry]), iters=20 * sets)
+            timings[entry][path] = {
+                "shape": list(shape), "k": k, "ms": ms[entry], "plain_ms": plain_ms,
+                "eager_ms": eager_ms, "library_ms": None,  # no single PyTorch call computes it
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes, "flops": flops, "buffer_sets": sets,
+            }
+            log(f"[train-kernels] kpn_apply.{entry} {shape} k={k} ({path}): "
+                f"{ms[entry] * 1e3:.1f} us/launch ({nbytes / (ms[entry] * 1e-3) / 1e12:.2f} TB/s); "
+                f"bound {timings[entry][path]['bound_ms'] * 1e3:.1f} us by "
+                f"{timings[entry][path]['bound_by']} ({nbytes / 1e6:.1f} MB at 3.35 TB/s = "
+                f"{bytes_ms * 1e3:.1f} us, {flops / 1e9:.3f} GFLOP at 67 TFLOP/s = "
+                f"{ops_ms * 1e3:.1f} us); plain backward "
+                + ("(d_w only)" if entry == "bwd_weights" else "(both gradients)")
+                + f" {plain_ms * 1e3:.1f} us; eager call {eager_ms * 1e3:.1f} us; CUDA-graph "
+                f"replay over {sets} buffer sets, in turns | {card['smi']}")
+        del bufs, calls, plain
+        torch.cuda.empty_cache()
+    return {e: {**t["train"], "plane": t["plane"], "max_abs_err": worst[e]}
+            for e, t in timings.items()}
+
+
+def phase_train_parity(card: dict) -> None:
+    """One make_train_step step of a small joint KPN (base 16, depth 2, 8
+    slots, fp32) on the card against the same step on the CPU, from the
+    same initial state and batch, TF32 off."""
+    from deepdenoiser_tpu_torch import config
+    from deepdenoiser_tpu_torch.models.factory import ModelConfig
+    from deepdenoiser_tpu_torch.training import train as train_lib
+
+    mcfg = ModelConfig(backbone="unet", in_channels=41, out_channels=24, base_width=16, depth=2,
+                       kernel_prediction=True, kpn_size=5, kpn_slots=8, kpn_logit_norm=True,
+                       act="leaky_relu")
+    lr = 1e-3
+    tcfg = config.TrainConfig(learning_rate=lr, warmup_steps=0, schedule="constant",
+                              ema_decay=0.999)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.rand((4, 64, 64, 41), generator=gen)
+    sig = torch.cat([x[..., 9 * g : 9 * g + 6] for g in range(4)], dim=-1)
+    batch = {"x": x, "y": sig + 0.05 * torch.randn(sig.shape, generator=gen)}
+    step = train_lib.make_train_step(mcfg, tcfg)
+    with full_fp32():
+        gpu = train_lib.create_state(mcfg, tcfg, seed=0)
+        reset_launches()
+        gpu, gm = step(gpu, {k: v.to("cuda") for k, v in batch.items()})
+        torch.cuda.synchronize()
+        expect_launches("train-parity step", read_launches(), kpn_apply=8, kpn_apply_bwd_weights=8)
+    cpu = train_lib.create_state(mcfg, tcfg, seed=0, device="cpu")
+    cpu, cm = step(cpu, batch)
+    rel = {k: abs(float(gm[k]) - float(cm[k])) / abs(float(cm[k])) for k in ("loss", "grad_norm")}
+    diffs = torch.cat([(gpu.params[n].detach().cpu() - p.detach()).abs().flatten()
+                       for n, p in cpu.params.items()])
+    grads = torch.cat([p.grad.abs().flatten() for p in cpu.params.values()])
+    ema = max(float((gpu.ema_params[n].cpu() - e).abs().max()) for n, e in cpu.ema_params.items())
+    # Adam's first update moves every element by lr*g/(|g|+1e-8), about lr
+    # whatever |g| is, so an element stays within 2 lr in any case; two runs
+    # part by more than 1e-3 lr only where the gradient is at the level of
+    # the card's and the CPU's rounding (cuDNN sums in other orders), which
+    # the bar puts at 1e-5 of the gradient's global norm
+    far = diffs > 1e-3 * lr
+    noise = 1e-5 * float(cm["grad_norm"])
+    far_grad = float(grads[far].max()) if far.any() else 0.0
+    log(f"[train-parity] joint KPN base 16 depth 2, 8 slots, fp32 (TF32 off), batch (4,64,64,41), "
+        f"Adam lr {lr} constant: loss {float(gm['loss']):.7f} card / {float(cm['loss']):.7f} CPU "
+        f"(rel {rel['loss']:.2e}), grad_norm {float(gm['grad_norm']):.7f} / "
+        f"{float(cm['grad_norm']):.7f} (rel {rel['grad_norm']:.2e}); parameters after the step: "
+        f"max|d| {float(diffs.max()):.3e} = {float(diffs.max()) / lr:.2e} lr, mean "
+        f"{float(diffs.mean()):.3e}; {int(far.sum())} of {diffs.numel()} elements beyond 1e-3 lr, "
+        f"their largest |gradient| {far_grad:.2e} (bar {noise:.2e}); EMA max|d| {ema:.3e}; "
+        f"launches 8 forward, 8 bwd_weights, 0 bwd_noisy | {card['smi']}")
+    if not (rel["loss"] <= 1e-5 and rel["grad_norm"] <= 1e-5):
+        raise AssertionError(f"train-parity: loss / grad_norm differ by {rel}")
+    if not (float(diffs.max()) <= 2 * lr and far_grad <= noise):
+        raise AssertionError(f"train-parity: parameters differ by max {float(diffs.max())}; "
+                             f"elements beyond 1e-3 lr have gradients up to {far_grad}")
+
+
+def _train_config():
+    """kpn-hq at the JAX package's training recipe: batch 16, crop 96,
+    warm-up 10, lr 2.5e-4 (the kpn-hq recipe); a small corpus: 8 crops per
+    frame, one frame in five for validation; a log line per step."""
+    from deepdenoiser_tpu_torch import config
+
+    cfg = config.PRESETS["kpn-hq"]
+    return dataclasses.replace(
+        cfg,
+        data=dataclasses.replace(cfg.data, batch_size=TRAIN_BATCH, crop=TRAIN_CROP,
+                                 crops_per_frame=8, validation_fraction=0.2),
+        train=dataclasses.replace(cfg.train, learning_rate=2.5e-4, warmup_steps=10,
+                                  steps=RESUME_STEPS, log_every=1, checkpoint_every=10,
+                                  eval_every=TRAIN_STEPS),
+    )
+
+
+def _metrics(path: Path) -> list:
+    return [json.loads(ln) for ln in path.read_text().splitlines() if ln.strip()]
+
+
+def _cli_quiet(argv) -> int:
+    """cli.main with its per-step stdout kept out of the log."""
+    import io
+
+    from deepdenoiser_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        return cli.main(argv)
+
+
+def _steps_timed(state, step, batch, n: int) -> tuple:
+    """(losses, host-clock ms of each step closed by reading its loss)."""
+    losses, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, mets = step(state, batch)
+        losses.append(float(mets["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return losses, times
+
+
+def _loader_and_loop_split(cfg, shards_dir: Path, card: dict) -> dict:
+    """Where a `train` step's time goes: the loader alone (its threads,
+    pinned batches, as fit starts it); fit's loop body as fit runs it
+    (next, to the card, encode, step, the metric record; no synchronize
+    but the record's read); and the same body with each part closed by a
+    synchronize: next(), to the card and encode, the step, the record."""
+    from deepdenoiser_tpu_torch import config
+    from deepdenoiser_tpu_torch.data import loader
+    from deepdenoiser_tpu_torch.training import loop
+    from deepdenoiser_tpu_torch.training import train as train_lib
+
+    source = loader.make_dataset(shards_dir / "train", cfg.data)
+    source.batch(0, 0)  # reads the shard into the reader's cache
+    t0 = time.perf_counter()
+    for b in range(1, 4):
+        source.batch(0, b % source.batches_per_epoch)
+    one_ms = (time.perf_counter() - t0) / 3 * 1e3
+    it = loader.make_iterator(shards_dir / "train", cfg.data, pin_memory=True)
+    for _ in range(it.prefetch):  # the shard is read and the pinned blocks cached
+        next(it)
+    t0 = time.perf_counter()
+    for _ in range(LOADER_BATCHES):
+        next(it)
+    loader_ms = (time.perf_counter() - t0) / LOADER_BATCHES * 1e3
+    it.close()
+    mcfg = config.validate_channels(cfg).model
+    state = train_lib.create_state(mcfg, cfg.train, seed=0)
+    step = train_lib.make_train_step(mcfg, cfg.train)
+    encode = loader.make_batch_encoder(cfg.data)
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(dir=WORK) as logdir, \
+            contextlib.redirect_stdout(io.StringIO()):
+        logger = loop.MetricLogger(Path(logdir))
+        it = loader.make_iterator(shards_dir / "train", cfg.data, pin_memory=True)
+        whole = []
+        for i in range(TRAIN_WARMUP + LOADER_BATCHES):
+            t0 = time.perf_counter()
+            state, mets = step(state, encode(loop._to_device(next(it), dev)))
+            logger.log(i, mets)
+            if i >= TRAIN_WARMUP:
+                whole.append((time.perf_counter() - t0) * 1e3)
+        parts = {"next": [], "encode": [], "step": [], "record": []}
+        for i in range(TRAIN_WARMUP + LOADER_BATCHES):
+            t0 = time.perf_counter()
+            raw = next(it)
+            t1 = time.perf_counter()
+            batch = encode(loop._to_device(raw, dev))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            state, mets = step(state, batch)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            logger.log(i, mets)
+            t4 = time.perf_counter()
+            if i >= TRAIN_WARMUP:
+                for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                    parts[k].append(dt * 1e3)
+        it.close()
+        logger.close()
+    med = {k: statistics.median(v) for k, v in parts.items()}
+    whole_ms = statistics.median(whole)
+    log(f"[train] one batch built in this process (reads, D4, stack): {one_ms:.2f} ms; the "
+        f"loader alone: {loader_ms:.2f} ms/batch over {LOADER_BATCHES} batches ({it.threads} "
+        f"threads, pinned; host: {os.cpu_count()} CPUs, {len(os.sched_getaffinity(0))} usable); "
+        f"fit's loop body as fit runs it: {whole_ms:.2f} ms/step, median of {LOADER_BATCHES}; "
+        f"with each part closed by a synchronize: next() {med['next']:.2f} ms, to the card + "
+        f"encode {med['encode']:.2f} ms, step {med['step']:.2f} ms, metric record "
+        f"{med['record']:.2f} ms (sum {sum(med.values()):.2f}; tensorboard "
+        f"{'on' if logger._tb is not None else 'not installed'}) | {card['smi']}")
+    del state, step
+    torch.cuda.empty_cache()
+    return {"loader_ms": loader_ms, "one_batch_ms": one_ms, "loop_ms": med,
+            "loop_whole_ms": whole_ms}
+
+
+@contextlib.contextmanager
+def _k1_in_eval(counts: dict):
+    """Counts K1's launches inside fit's eval and preview into
+    counts['kpn_apply'], so a `train` call's launches split into its
+    steps' and its eval's."""
+    from deepdenoiser_tpu_torch.ops import kpn_apply
+    from deepdenoiser_tpu_torch.training import loop
+
+    def counted(fn):
+        def run(*args, **kwargs):
+            before = kpn_apply.launches
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                counts["kpn_apply"] += kpn_apply.launches - before
+        return run
+
+    saved = loop._run_eval, loop._log_preview
+    loop._run_eval, loop._log_preview = counted(saved[0]), counted(saved[1])
+    try:
+        yield counts
+    finally:
+        loop._run_eval, loop._log_preview = saved
+
+
+def phase_train(frame: dict, card: dict, profile: bool = False) -> dict:
+    """kpn-hq trained through the user's commands: synth-data -> prepare-data
+    -> train (20 steps, then resumed to 30) -> denoise --checkpoint --ema on
+    the 1080p frame; then a fixed-batch overfit check and ms per step of
+    kpn-hq and flagship-hq through make_train_step."""
+    import shutil
+
+    from deepdenoiser_tpu_torch import config
+    from deepdenoiser_tpu_torch.data import exr, loader
+    from deepdenoiser_tpu_torch.training import train as train_lib
+
+    renders, shards_dir, workdir = WORK / "train_renders", WORK / "train_shards", WORK / "train_run"
+    for d in (renders, shards_dir, workdir):
+        shutil.rmtree(d, ignore_errors=True)
+    cfg = _train_config()
+    cfg_path = WORK / "train.json"
+    config.save(cfg, cfg_path)
+    res = {}
+
+    t0 = time.perf_counter()
+    if _cli_quiet(["synth-data", "--out", str(renders), "--frames", "4", "--size", "192"]) != 0:
+        raise AssertionError("cli synth-data failed")
+    t_synth = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if _cli_quiet(["prepare-data", "--config", str(cfg_path), "--renders", str(renders),
+                   "--out", str(shards_dir)]) != 0:
+        raise AssertionError("cli prepare-data failed")
+    t_prep = time.perf_counter() - t0
+    n_train = loader.make_dataset(shards_dir / "train", cfg.data).n_examples
+    n_val_batches = loader.make_dataset(shards_dir / "validation", cfg.data,
+                                        training=False).batches_per_epoch
+    log(f"[train] synth-data: 4 Fourier frames of 192x192, spp 4 and 16, in {t_synth:.1f} s; "
+        f"prepare-data: {n_train} training crops of {TRAIN_CROP}, {n_val_batches} validation "
+        f"batch(es), in {t_prep:.1f} s")
+
+    train_argv = ["train", "--config", str(cfg_path), "--workdir", str(workdir),
+                  "--shards", str(shards_dir)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _k1_in_eval({"kpn_apply": 0}) as in_eval:
+        if _cli_quiet([*train_argv, "--steps", str(TRAIN_STEPS)]) != 0:
+            raise AssertionError("cli train failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    res["launches"] = read_launches()
+    # K1 in the steps: the call's count less the eval's, counted apart
+    res["k1_eval_launches"] = in_eval["kpn_apply"]
+    res["k1_step_launches"] = res["launches"]["kpn_apply"] - in_eval["kpn_apply"]
+    per_eval = 8 * (2 * n_val_batches + 1)  # params + EMA per batch, and the preview
+    if (res["k1_step_launches"], res["k1_eval_launches"]) != (8 * TRAIN_STEPS, per_eval):
+        raise AssertionError(f"cli train: K1 launches {res['k1_step_launches']} in the steps, "
+                             f"{res['k1_eval_launches']} in the eval; want {8 * TRAIN_STEPS}, "
+                             f"{per_eval}")
+    expect_launches("cli train", res["launches"], kpn_apply=8 * TRAIN_STEPS + per_eval,
+                    kpn_apply_bwd_weights=8 * TRAIN_STEPS)
+    recs = _metrics(workdir / "metrics_train.jsonl")
+    if [r["step"] for r in recs] != list(range(1, TRAIN_STEPS + 1)) or not all(
+            math.isfinite(r["loss"]) for r in recs):
+        raise AssertionError(f"cli train: metrics {recs}")
+    evals = _metrics(workdir / "metrics_eval.jsonl")
+    if [r["step"] for r in evals] != [TRAIN_STEPS] or not (
+            workdir / "previews" / f"step_{TRAIN_STEPS:08d}.png").exists():
+        raise AssertionError(f"cli train: eval records {evals}")
+    step_ms = [(b["time"] - a["time"]) * 1e3 for a, b in zip(recs[TRAIN_WARMUP:], recs[TRAIN_WARMUP + 1:])]
+    res["cli_ms"] = statistics.median(step_ms)
+    res["cli_peak_gib"] = peak
+    px = TRAIN_BATCH * TRAIN_CROP * TRAIN_CROP
+    log(f"[train] cli train, kpn-hq, batch {TRAIN_BATCH}, crop {TRAIN_CROP}, bf16, {TRAIN_STEPS} "
+        f"steps in {wall:.1f} s (loader threads, eval and checkpoints included): "
+        f"{res['cli_ms']:.2f} ms/step median over steps {TRAIN_WARMUP + 2}-{TRAIN_STEPS} (host "
+        f"clock between metric records, each closed by reading the step's metrics), "
+        f"{TRAIN_BATCH / res['cli_ms'] * 1e3:.1f} samples/s, {px / res['cli_ms'] / 1e3:.2f} Mpx/s, "
+        f"peak {peak:.2f} GiB; launches: kpn_apply {res['k1_step_launches']} in the steps + "
+        f"{res['k1_eval_launches']} in the eval at step {TRAIN_STEPS}, bwd_weights "
+        f"{res['launches']['kpn_apply_bwd_weights']}, bwd_noisy "
+        f"{res['launches']['kpn_apply_bwd_noisy']} | {card['smi']}")
+    e = evals[0]
+    log(f"[train] eval at step {TRAIN_STEPS}: psnr_tm {e['psnr_tm']:.4f} dB (EMA "
+        f"{e['ema_psnr_tm']:.4f}, noisy {e['noisy_psnr_tm']:.4f}), ssim_tm {e['ssim_tm']:.5f}")
+
+    reset_launches()
+    if _cli_quiet([*train_argv, "--steps", str(RESUME_STEPS)]) != 0:
+        raise AssertionError("cli train (resume) failed")
+    torch.cuda.synchronize()
+    resumed = RESUME_STEPS - TRAIN_STEPS
+    expect_launches("cli train resumed", read_launches(), kpn_apply=8 * resumed,
+                    kpn_apply_bwd_weights=8 * resumed)
+    recs = _metrics(workdir / "metrics_train.jsonl")
+    ckpts = sorted(int(p.name) for p in (workdir / "checkpoints").iterdir() if p.name.isdigit())
+    if [r["step"] for r in recs] != list(range(1, RESUME_STEPS + 1)) or ckpts != [10, 20, 30]:
+        raise AssertionError(f"cli train resume: steps {[r['step'] for r in recs]}, "
+                             f"checkpoints {ckpts}")
+    log(f"[train] resumed at step {TRAIN_STEPS} to {RESUME_STEPS}: metrics file continues; "
+        f"checkpoints {ckpts}; loss curve "
+        + " ".join(f"{r['loss']:.4f}" for r in recs))
+
+    reset_launches()
+    out_exr = WORK / "train_denoised.exr"
+    if _cli_quiet(["denoise", "--config", str(workdir / "config.json"), "--checkpoint",
+                   str(workdir / "checkpoints"), "--ema", "--frame", str(frame["dir"]),
+                   "--out", str(out_exr)]) != 0:
+        raise AssertionError("cli denoise --checkpoint failed")
+    torch.cuda.synchronize()
+    expect_launches("cli denoise --checkpoint", read_launches(), kpn_apply=8)
+    out = torch.from_numpy(exr.read_exr(out_exr))
+    if tuple(out.shape) != (FRAME_H, FRAME_W, 3) or not torch.isfinite(out).all():
+        raise AssertionError(f"cli denoise --checkpoint: output {tuple(out.shape)} not finite")
+    log(f"[train] denoise --checkpoint --ema (step {RESUME_STEPS}): 1080p frame finite, 8 "
+        f"kpn_apply launches")
+
+    res.update(_loader_and_loop_split(cfg, shards_dir, card))
+
+    # ms per step through make_train_step on a batch already on the card,
+    # kpn-hq and flagship-hq at the same batch and crop; kpn-hq's run is
+    # also the fixed-batch overfit check
+    raw = {k: v.to("cuda") for k, v in loader.make_dataset(shards_dir / "train", cfg.data,
+                                                           training=False)[(0, 0)].items()}
+    batch = loader.make_batch_encoder(cfg.data)(raw)
+    for preset, k1, n in (("kpn-hq", 8, OVERFIT_STEPS), ("flagship-hq", 0, TIMED_STEPS)):
+        mcfg = config.validate_channels(config.PRESETS[preset]).model
+        tcfg = dataclasses.replace(cfg.train, learning_rate=OVERFIT_LR, warmup_steps=0,
+                                   schedule="constant")
+        state = train_lib.create_state(mcfg, tcfg, seed=0)
+        step = train_lib.make_train_step(mcfg, tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, times = _steps_timed(state, step, batch, n)
+        expect_launches(f"{preset} train steps", read_launches(), n, kpn_apply=k1,
+                        kpn_apply_bwd_weights=k1)
+        ms = statistics.median(times[TRAIN_WARMUP:])
+        res[preset] = {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "first_loss": losses[0], "last_loss": losses[-1], "steps": n}
+        log(f"[train] {preset} make_train_step, batch {TRAIN_BATCH}, crop {TRAIN_CROP}, bf16, one "
+            f"fixed batch on the card, Adam lr {OVERFIT_LR} constant: {ms:.2f} ms/step median of "
+            f"{n - TRAIN_WARMUP} (min {min(times[TRAIN_WARMUP:]):.2f}, max "
+            f"{max(times[TRAIN_WARMUP:]):.2f}; host clock, each step closed by reading its loss), "
+            f"{TRAIN_BATCH / ms * 1e3:.1f} samples/s, {px / ms / 1e3:.2f} Mpx/s, peak "
+            f"{res[preset]['peak_gib']:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+            f"({losses[-1] / losses[0]:.3f}x; at step 30 {losses[29] / losses[0]:.3f}x); K1 launches per step {k1} forward, {k1} backward "
+            f"| {card['smi']}")
+        log(f"[train] {preset} fixed-batch loss curve: " + " ".join(f"{v:.4f}" for v in losses))
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{preset}: non-finite loss {losses}")
+        if preset == "kpn-hq" and not losses[-1] < 0.5 * losses[0]:
+            raise AssertionError(f"kpn-hq overfit: loss {losses[0]} -> {losses[-1]}, not below half")
+        if profile:
+            profile_frames(f"{preset} train step", lambda: step(state, batch), card)
+        del state, step
+        torch.cuda.empty_cache()
+    return res
+
+
+def _kernel_row(name: str, source: str, replaces: str, launches: int, t: dict,
+                on_path: bool = True, **extra) -> dict:
+    """One entry of the kernels line; `on_path`: some entry point's path
+    launches the kernel (else it is only held to its plain version)."""
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+        "launches": launches, "on_path": on_path, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t.get("library_ms"),  # None: no single PyTorch call computes it
         "us": t["ms"] * 1e3, "bound_us": t["bound_ms"] * 1e3, "shape": t["shape"],
@@ -1379,6 +1874,9 @@ def main(argv=None) -> int:
     phase_multiscale(frame, card)
     phase_flags(frame, card)
     phase_sequence(frame, card)
+    train_kern = phase_train_kernels(card)
+    phase_train_parity(card)
+    train_res = phase_train(frame, card, profile=args.profile)
 
     group, tile = kern["group"], kern["tile"]
     kernels = [_kernel_row(
@@ -1392,7 +1890,24 @@ def main(argv=None) -> int:
         launches_feathered_group_frame=feather_res["launches"]["kpn_apply"],
         tile_shape=tile["shape"], tile_ms=tile["ms"], tile_plain_ms=tile["plain_ms"],
         tile_bound_ms=tile["bound_ms"], tile_bytes=tile["bytes"],
+        launches_per_train_step=train_res["k1_step_launches"] / TRAIN_STEPS,
+        launches_train_eval=train_res["k1_eval_launches"],
     )]
+    for entry, fn in BWD_ENTRIES.items():
+        t, plane = train_kern[entry], train_kern[entry]["plane"]
+        # launches: of the first `train` call (20 steps, its eval runs no
+        # backward); d_noisy has no caller on any entry point (training's
+        # signal is a slice of the network input): KpnApply needs it for the
+        # signal's gradient, and it is held to the plain backward only
+        kernels.append(_kernel_row(
+            f"kpn_apply.{entry}", "deepdenoiser_tpu_torch/csrc/kpn_apply_bwd.cu", BWD_REPLACES,
+            train_res["launches"][f"kpn_apply_{entry}"], t, on_path=entry != "bwd_noisy",
+            k=t["k"], entry_point=fn,
+            launches_per_train_step=train_res["launches"][f"kpn_apply_{entry}"] / TRAIN_STEPS,
+            eager_ms=t["eager_ms"], buffer_sets=t["buffer_sets"],
+            plane_shape=plane["shape"], plane_ms=plane["ms"], plane_plain_ms=plane["plain_ms"],
+            plane_bound_ms=plane["bound_ms"], plane_bytes=plane["bytes"],
+        ))
     group_t = ingest.pop("group_encode")
     for name, t in ingest.items():
         # launches: of the per-pass encode of the frame's passes (the group
@@ -1416,10 +1931,14 @@ def main(argv=None) -> int:
         bodies_by_path={path: [ingest[b]["replaces"] for b in bodies]
                         for path, bodies in GROUP_ENCODE_BODIES.items()},
     ))
-    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    idle = [k["name"] for k in kernels if k["launches"] < 1 and k["on_path"]]
     if idle:
         raise AssertionError(f"kernels launched on no path: {idle}")
     log(f"[done] all phases in {time.perf_counter() - t_start:.0f} s")
+    log("[summary] train ms/step: kpn-hq cli {:.2f} (loader included), fit's loop body {:.2f}, "
+        "make_train_step {:.2f}; flagship-hq make_train_step {:.2f}; loader alone {:.2f} "
+        "ms/batch".format(train_res["cli_ms"], train_res["loop_whole_ms"], train_res["kpn-hq"]["ms"],
+                          train_res["flagship-hq"]["ms"], train_res["loader_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],

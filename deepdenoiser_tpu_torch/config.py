@@ -1,12 +1,11 @@
 """Typed dataclass configs with JSON round-trip, and the presets the port
 runs.
 
-The port of deepdenoiser_tpu/config.py for inference. `ModelConfig`
-(models/factory.py), `DataConfig` and `InferenceConfig` keep every JAX
-field name and default, so the same values describe the same experiment in
-both packages and a JSON saved by either loads in the other. Training is
-not ported yet: `ExperimentConfig.train` holds that section as a plain
-dict, read by nothing here. `PRESETS` holds every preset of the JAX
+The port of deepdenoiser_tpu/config.py. `ModelConfig` (models/factory.py),
+`DataConfig`, `TrainConfig` (with `LossConfig`, ops/losses.py) and
+`InferenceConfig` keep every JAX field name and default, so the same
+values describe the same experiment in both packages and a JSON saved by
+either loads in the other. `PRESETS` holds every preset of the JAX
 package under its name: `flagship-max` and `kpn` (group-mode 2-slot KPN),
 `kpn-hq` (joint 8-slot KPN), `flagship-hq` and `flagship-mc` (joint
 residual, stride-1 stem), `flagship` and `flagship-flags` (joint residual,
@@ -24,6 +23,7 @@ from typing import Any, Dict, Tuple, Type, TypeVar, get_args, get_origin, get_ty
 
 from deepdenoiser_tpu_torch import transforms
 from deepdenoiser_tpu_torch.models.factory import ModelConfig
+from deepdenoiser_tpu_torch.ops.losses import LossConfig
 from deepdenoiser_tpu_torch.passes import AUX_PASSES, LIGHT_GROUPS
 
 T = TypeVar("T")
@@ -31,10 +31,12 @@ T = TypeVar("T")
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Input pipeline settings (same names and defaults as the JAX
-    package's DataConfig). Inference reads `groups`, `mode`, `use_flags`
-    and `pass_scales`; the loader and training fields are carried so
-    configs round-trip, and come into use with the loader slice."""
+    """prepare-data, loader and encode settings (same names and defaults
+    as the JAX package's DataConfig). `shuffle_buffer` is carried so
+    configs round-trip; the loader shuffles the whole index space per
+    epoch (data/loader.py). `read_threads` is the loader's thread count
+    (0 = min(4, usable CPUs)) and `prefetch_batches` the batches it builds
+    ahead (0 = 8)."""
 
     shard_dir: str = "data/shards"
     crop: int = 64
@@ -52,6 +54,35 @@ class DataConfig:
     seed: int = 0
     read_threads: int = 0
     prefetch_batches: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer, schedule and checkpointing (same names and defaults as
+    the JAX package's TrainConfig). `data_parallel` belongs to the
+    multi-device slice: one card trains unsharded."""
+
+    steps: int = 10_000
+    learning_rate: float = 2e-4
+    warmup_steps: int = 500
+    schedule: str = "cosine"  # 'cosine' | 'constant'
+    weight_decay: float = 0.0
+    beta1: float = 0.9
+    beta2: float = 0.999
+    grad_clip_norm: float = 1.0
+    ema_decay: float = 0.0  # >0 keeps a parameter EMA for eval
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_every: int = 1000
+    keep_checkpoints: int = 3
+    log_every: int = 100
+    eval_every: int = 1000
+    data_parallel: bool = True
+    # >0 with a multi-scale model: supervise the composed output at every
+    # pyramid scale against the average-downsampled target
+    scale_supervision_weight: float = 0.0
+    # >0: loss = (1-w)*loss(ground truth) + w*loss(batch['y_teacher'])
+    distill_weight: float = 0.0
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,8 +116,7 @@ class ExperimentConfig:
     name: str = "default"
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
-    # the JAX package's TrainConfig section, kept as it was loaded
-    train: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     infer: InferenceConfig = dataclasses.field(default_factory=InferenceConfig)
 
 
@@ -107,7 +137,7 @@ def _from_dict(cls: Type[T], d: Any) -> T:
             if args and args[-1] is Ellipsis:
                 return tuple(_from_dict(args[0], v) for v in d)  # type: ignore
             return tuple(d)  # type: ignore
-        return d  # primitives and plain dicts pass through
+        return d  # primitives pass through
     hints = get_type_hints(cls)
     fields = {f.name for f in dataclasses.fields(cls)}
     kwargs = {}
@@ -145,8 +175,6 @@ def _tiramisu(**kw) -> ModelConfig:
     )
 
 
-_EMA = {"ema_decay": 0.999}  # the JAX presets' non-default training value
-
 PRESETS: Dict[str, ExperimentConfig] = {
     # joint 4-group single pass, space-to-depth stem, base width 96
     "flagship": ExperimentConfig(
@@ -157,7 +185,7 @@ PRESETS: Dict[str, ExperimentConfig] = {
             act="leaky_relu",
         ),
         data=DataConfig(mode="joint"),
-        train=dict(_EMA),
+        train=TrainConfig(ema_decay=0.999),
         infer=InferenceConfig(border=32),
     ),
     # flagship's model trained across frames that lack some light groups:
@@ -170,7 +198,7 @@ PRESETS: Dict[str, ExperimentConfig] = {
             act="leaky_relu",
         ),
         data=DataConfig(mode="joint", use_flags=True),
-        train=dict(_EMA),
+        train=TrainConfig(ema_decay=0.999),
         infer=InferenceConfig(border=32),
     ),
     # stride-1 UNet, base width 64, depth 3, residual prediction
@@ -178,7 +206,7 @@ PRESETS: Dict[str, ExperimentConfig] = {
         name="flagship-hq",
         model=_unet64(predict_residual=True),
         data=DataConfig(mode="joint"),
-        train=dict(_EMA),
+        train=TrainConfig(ema_decay=0.999),
         infer=InferenceConfig(border=32),
     ),
     # the same architecture, weights fine-tuned on Monte-Carlo-traced noise
@@ -186,7 +214,7 @@ PRESETS: Dict[str, ExperimentConfig] = {
         name="flagship-mc",
         model=_unet64(predict_residual=True),
         data=DataConfig(mode="joint"),
-        train=dict(_EMA),
+        train=TrainConfig(ema_decay=0.999),
         infer=InferenceConfig(border=32),
     ),
     # kernel prediction in group mode: a 2-slot 5x5 KPN head on a base-48
@@ -200,7 +228,7 @@ PRESETS: Dict[str, ExperimentConfig] = {
             compute_dtype="bfloat16", act="leaky_relu",
         ),
         data=DataConfig(mode="group"),
-        train=dict(_EMA),
+        train=TrainConfig(ema_decay=0.999),
         infer=InferenceConfig(border=32),
     ),
     "unet-small": ExperimentConfig(
@@ -214,14 +242,14 @@ PRESETS: Dict[str, ExperimentConfig] = {
                           compute_dtype="bfloat16", predict_residual=True,
                           act="leaky_relu"),
         data=DataConfig(mode="joint"),
-        train=dict(_EMA, scale_supervision_weight=0.5),
+        train=TrainConfig(ema_decay=0.999, scale_supervision_weight=0.5),
     ),
     # FC-DenseNet with full dense concats on the up path
     "tiramisu": ExperimentConfig(
         name="tiramisu",
         model=_tiramisu(),
         data=DataConfig(mode="joint"),
-        train=dict(_EMA),
+        train=TrainConfig(ema_decay=0.999),
         infer=InferenceConfig(border=32),
     ),
     # the same with 1x1-bottlenecked up-path joins
@@ -229,7 +257,7 @@ PRESETS: Dict[str, ExperimentConfig] = {
         name="tiramisu-fast",
         model=_tiramisu(up_compress=64),
         data=DataConfig(mode="joint"),
-        train=dict(_EMA),
+        train=TrainConfig(ema_decay=0.999),
         infer=InferenceConfig(border=32),
     ),
     # tiramisu-fast with the two full-resolution dense blocks thinned to
@@ -238,7 +266,7 @@ PRESETS: Dict[str, ExperimentConfig] = {
         name="tiramisu-lt1",
         model=_tiramisu(up_compress=64, layers_top=1),
         data=DataConfig(mode="joint"),
-        train=dict(_EMA),
+        train=TrainConfig(ema_decay=0.999),
         infer=InferenceConfig(border=32),
     ),
     # flagship-max's model with the certified halo as the border
@@ -250,7 +278,7 @@ PRESETS: Dict[str, ExperimentConfig] = {
             compute_dtype="bfloat16", act="leaky_relu",
         ),
         data=DataConfig(mode="group"),
-        train=dict(_EMA),
+        train=TrainConfig(ema_decay=0.999),
     ),
     # the flagship-hq backbone with an 8-slot 5x5 kernel-prediction head
     "kpn-hq": ExperimentConfig(
@@ -258,7 +286,7 @@ PRESETS: Dict[str, ExperimentConfig] = {
         model=_unet64(kernel_prediction=True, kpn_size=5, kpn_slots=8,
                       kpn_logit_norm=True),
         data=DataConfig(mode="joint"),
-        train=dict(_EMA),
+        train=TrainConfig(ema_decay=0.999),
         infer=InferenceConfig(border=32),
     ),
 }

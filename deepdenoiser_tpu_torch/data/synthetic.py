@@ -1,6 +1,6 @@
 """Procedural synthetic render-pass generator (SURVEY.md N5).
 
-A copy of generate_clean_passes and add_mc_noise from
+A copy of generate_clean_passes, add_mc_noise and generate_frame_set from
 deepdenoiser_tpu/data/synthetic.py, so the port builds the same Fourier
 family frames (same seeds, same numbers) with no import of the JAX
 package. The pass sets are recomposition-consistent:
@@ -148,3 +148,22 @@ def recompose_np(pass_dict: Dict[str, np.ndarray], groups: Sequence[str] = LIGHT
     if combined is None:
         raise ValueError("no recomposable passes")
     return combined.astype(np.float32)
+
+
+def generate_frame_set(
+    height: int,
+    width: int,
+    seed: int,
+    spps: Sequence[int] = (4, 16),
+    n_seeds: int = 2,
+    groups: Sequence[str] = LIGHT_GROUPS,
+):
+    """(clean, [noisy...]) mimicking one Blender render job's output:
+    ground truth + len(spps) * n_seeds noisy realizations."""
+    clean = generate_clean_passes(height, width, seed=seed, groups=groups)
+    noisy = [
+        add_mc_noise(clean, spp=spp, seed=seed * 1000 + 97 * k + spp, groups=groups)
+        for spp in spps
+        for k in range(n_seeds)
+    ]
+    return clean, noisy

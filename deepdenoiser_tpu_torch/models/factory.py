@@ -13,7 +13,8 @@ branch.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple, Union
+import math
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -207,3 +208,27 @@ def spatial_multiple(cfg: ModelConfig) -> int:
 
 def build_model(cfg: ModelConfig) -> DenoiserModel:
     return DenoiserModel(cfg)
+
+
+def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None) -> DenoiserModel:
+    """A model initialised as the JAX package's `init_params` initialises
+    its Flax tree: every conv kernel lecun-normal (layers.lecun_normal_),
+    every bias zero, the backbone's 1x1 head zero when the model predicts a
+    residual without a KPN head (`head_zero_init`, so it starts as the
+    identity), the KPN temperatures at t0. Draws come from `generator`, in
+    the order the modules are registered; jax.random's bits are not
+    reproduced, only their distributions."""
+    model = build_model(cfg)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Conv2d):
+                layers.lecun_normal_(mod.weight, generator)
+                mod.bias.zero_()
+        if cfg.predict_residual and not cfg.kernel_prediction:
+            backbone = model.UNet_0 if cfg.backbone == "unet" else model.Tiramisu_0
+            backbone.Conv_0.weight.zero_()
+        if cfg.kernel_prediction and cfg.kpn_logit_norm:
+            head = model.KernelPredictionHead_0
+            head.kernel_temp.fill_(
+                math.log(head.TEMP_INIT / (head.TEMP_MAX - head.TEMP_INIT)))
+    return model

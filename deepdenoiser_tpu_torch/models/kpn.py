@@ -7,15 +7,16 @@ noisy neighbours, and the filter is applied to the noisy signal, one
 3-channel slot at a time.
 
 `apply_per_pixel_kernels` here is the plain PyTorch version of the filter
-apply. The head calls ops/kpn_apply.py's wrapper, which launches the CUDA
-kernel for tensors on the card and runs this plain version for tensors on
-the CPU.
+apply and `apply_per_pixel_kernels_bwd` that of its backward. The head
+calls ops/kpn_apply.py's autograd function, which launches the CUDA
+kernels for tensors on the card and runs these plain versions for tensors
+on the CPU.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +46,32 @@ def apply_per_pixel_kernels(noisy: Tensor, weights: Tensor, kernel_size: int) ->
     return out
 
 
+def apply_per_pixel_kernels_bwd(
+    noisy: Tensor, weights: Tensor, g: Tensor, kernel_size: int, need_noisy: bool = True
+) -> Tuple[Optional[Tensor], Tensor]:
+    """Adjoint of apply_per_pixel_kernels, the tap loops of the JAX
+    package's _kpn_pallas_bwd (kpn_pallas.py:158-184), p = k//2:
+
+      d_w[n,y,x,t]     = sum_c g[n,y,x,c] * zeropad(noisy)[n, y+dy-p, x+dx-p, c]
+      d_noisy[n,u,v,c] = sum_t (g*w_t)[n, u+p-dy, v+p-dx, c]   (tap-flipped)
+
+    Returns (d_noisy or None when not `need_noisy`, d_w), fp32."""
+    n, h, w, c = noisy.shape
+    k = kernel_size
+    p = k // 2
+    gf, wf = g.float(), weights.float()
+    padded = F.pad(noisy.float(), (0, 0, p, p, p, p))
+    d_w = []
+    d_noisy = torch.zeros((n, h, w, c), dtype=torch.float32, device=noisy.device) if need_noisy else None
+    for t in range(k * k):
+        dy, dx = t // k, t % k
+        d_w.append((gf * padded[:, dy : dy + h, dx : dx + w, :]).sum(dim=-1))
+        if need_noisy:
+            gw = F.pad(gf * wf[..., t : t + 1], (0, 0, p, p, p, p))
+            d_noisy = d_noisy + gw[:, k - 1 - dy : k - 1 - dy + h, k - 1 - dx : k - 1 - dx + w, :]
+    return d_noisy, torch.stack(d_w, dim=-1)
+
+
 class KernelPredictionHead(nn.Module):
     """Backbone features → softmax k×k kernels → filtered signal.
 
@@ -53,7 +80,7 @@ class KernelPredictionHead(nn.Module):
     the softmax (the JAX package's round-3 stability fix).
 
     `filter_apply` is the filter apply; it defaults to the dispatching
-    wrapper (kernel on the card, plain version on the CPU).
+    autograd function (kernels on the card, plain versions on the CPU).
     """
 
     TEMP_MAX = 16.0

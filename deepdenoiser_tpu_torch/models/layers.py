@@ -107,6 +107,16 @@ class RFState:
         return math.ceil(max(self.bl, self.br))
 
 
+def lecun_normal_(weight: Tensor, generator: Optional[torch.Generator] = None) -> Tensor:
+    """Flax's default conv kernel init (`nn.initializers.lecun_normal()`:
+    variance_scaling(1, 'fan_in', 'truncated_normal')) on an OIHW weight:
+    a normal truncated at two standard deviations, scaled so the variance
+    is 1/fan_in, fan_in = in_channels * kh * kw. In place."""
+    fan_in = weight.shape[1] * weight.shape[2] * weight.shape[3]
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # the std of N(0,1) cut at +-2
+    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
 def _same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
     """XLA's SAME padding for one axis: (low, high)."""
     out = -(-size // stride)

@@ -7,7 +7,10 @@ live in channels_last memory, so the NHWC input and output are views and
 the convs run on cuDNN's NHWC path. With stem_stride=2 the input goes
 through space_to_depth first, the whole network runs at half resolution,
 the head emits 4x the output channels and depth_to_space restores the
-frame.
+frame. With `remat` each conv stack runs under torch.utils.checkpoint
+when gradients are on (its activations are recomputed in the backward
+pass, as jax.checkpoint does in the JAX UNet); the parameter names do not
+change.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint
 
 from deepdenoiser_tpu_torch.models import layers
 from deepdenoiser_tpu_torch.models.layers import RFState
@@ -34,7 +38,7 @@ class UNetSpec:
     width_growth: float = 2.0  # channel multiplier per level
     max_width: int = 512
     stem_stride: int = 1  # 2 = space-to-depth stem (half-resolution network)
-    remat: bool = False  # training-memory option of the JAX package
+    remat: bool = False  # recompute each conv stack's activations in the backward pass
 
     def width(self, level: int) -> int:
         return min(int(self.base_width * self.width_growth**level), self.max_width)
@@ -94,6 +98,12 @@ class UNet(nn.Module):
             self.add_module(f"ConvStack_{i}", s)
         self.Conv_0 = nn.Conv2d(prev, out_channels * spec.stem_stride**2, 1)
 
+    def _stack(self, i: int, x) -> Tensor:
+        stack = getattr(self, f"ConvStack_{i}")
+        if self.spec.remat and torch.is_grad_enabled():
+            return checkpoint.checkpoint(stack, x, use_reentrant=False)
+        return stack(x)
+
     def forward(self, x: Tensor) -> Tensor:
         spec = self.spec
         n, h, w, _ = x.shape
@@ -105,15 +115,15 @@ class UNet(nn.Module):
             x = layers.space_to_depth(x, 2)
         # NHWC -> NCHW view with channels_last strides (no copy when dense)
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        x = self.ConvStack_0(x)
+        x = self._stack(0, x)
         skips = []
         for level in range(1, spec.depth + 1):
             skips.append(x)
             x = getattr(self, f"DownSample_{level - 1}")(x)
-            x = getattr(self, f"ConvStack_{level}")(x)
+            x = self._stack(level, x)
         for i, level in enumerate(range(spec.depth - 1, -1, -1)):
             x = getattr(self, f"UpSample_{i}")(x)
-            x = getattr(self, f"ConvStack_{spec.depth + 1 + i}")((x, skips[level]))
+            x = self._stack(spec.depth + 1 + i, (x, skips[level]))
         out = F.conv2d(x, self.Conv_0.weight.to(self.dtype), self.Conv_0.bias.to(self.dtype))
         out = out.permute(0, 2, 3, 1)
         if spec.stem_stride == 2:

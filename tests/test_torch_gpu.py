@@ -369,3 +369,47 @@ def test_tiled_group_frame_equals_the_whole_frame_on_the_card(cuda, infer_kw, la
             assert float(diff.max()) <= 0.1 * scale and float(diff.mean()) <= 2e-3 * scale, name
         else:
             assert float(diff.max()) <= 1e-4 * scale, (name, float(diff.max()))
+
+
+# --------------------------------------------------------------------------
+# the KPN filter apply's backward
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,k", [((1, 37, 53, 3), 5), ((2, 20, 36, 1), 3), ((1, 9, 7, 4), 5),
+                                     ((16, 96, 96, 3), 5)],
+                         ids=["odd", "k3-c1", "c4", "train-batch"])
+def test_kpn_backward_kernels_match_plain_version(cuda, shape, k):
+    noisy, weights = _inputs(shape, k, cuda, seed=3)
+    g = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(4), device=cuda)
+    kpn_apply.reset_launches()
+    d_w = kpn_apply.bwd_weights_cuda(noisy, g, k)
+    d_noisy = kpn_apply.bwd_noisy_cuda(g, weights, k)
+    assert (kpn_apply.bwd_weights_launches, kpn_apply.bwd_noisy_launches) == (1, 1)
+    want_noisy, want_w = kpn.apply_per_pixel_kernels_bwd(noisy, weights, g, k, True)
+    torch.cuda.synchronize()
+    assert d_w.shape == want_w.shape and d_noisy.shape == want_noisy.shape
+    assert _within(d_w, want_w) and _within(d_noisy, want_noisy)
+
+
+def test_kpn_autograd_on_the_card_launches_only_the_gradients_asked_for(cuda):
+    """The head's strided views, as in training: the signal is a slice of
+    the input (no gradient), the weights a permuted planar softmax."""
+    k = 5
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    stack = torch.rand((2, 24, 40, 24), generator=gen, device=cuda)
+    logits = torch.randn((2, k * k, 24, 40), generator=gen, device=cuda, requires_grad=True)
+    g = torch.randn((2, 24, 40, 3), generator=gen, device=cuda)
+    kpn_apply.reset_launches()
+    out = kpn_apply.apply_per_pixel_kernels(stack[..., 3:6], torch.softmax(logits, 1).permute(0, 2, 3, 1), k)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (kpn_apply.launches, kpn_apply.bwd_weights_launches, kpn_apply.bwd_noisy_launches) == (1, 1, 0)
+    ref_logits = logits.detach().cpu().requires_grad_()
+    ref = kpn.apply_per_pixel_kernels(stack[..., 3:6].cpu(), torch.softmax(ref_logits, 1).permute(0, 2, 3, 1), k)
+    (ref * g.cpu()).sum().backward()
+    assert _within(logits.grad.cpu(), ref_logits.grad)
+    with torch.inference_mode():
+        kpn_apply.reset_launches()
+        kpn_apply.apply_per_pixel_kernels(stack[..., 3:6], torch.softmax(logits, 1).permute(0, 2, 3, 1), k)
+        assert (kpn_apply.launches, kpn_apply.bwd_weights_launches) == (1, 0)

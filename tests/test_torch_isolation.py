@@ -23,7 +23,9 @@ from deepdenoiser_tpu_torch.models import factory
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "deepdenoiser_tpu_torch"
-FORBIDDEN_TOP = {"jax", "jaxlib", "flax", "optax", "orbax"}
+# the JAX stack, and what its training path uses that the card's machine
+# lacks (Grain, clu, PIL)
+FORBIDDEN_TOP = {"jax", "jaxlib", "flax", "optax", "orbax", "grain", "clu", "PIL"}
 
 
 def _forbidden(module: str) -> bool:
@@ -37,6 +39,7 @@ def _forbidden(module: str) -> bool:
 def test_forbidden_name_match_is_not_fooled_by_the_prefix():
     assert _forbidden("deepdenoiser_tpu") and _forbidden("deepdenoiser_tpu.models.kpn")
     assert _forbidden("jax.numpy") and _forbidden("flax.linen")
+    assert _forbidden("grain.python") and _forbidden("PIL.Image") and _forbidden("clu")
     assert not _forbidden("deepdenoiser_tpu_torch")
     assert not _forbidden("deepdenoiser_tpu_torch.models.kpn")
     assert not _forbidden("jaxtyping_like")

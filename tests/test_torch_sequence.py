@@ -191,17 +191,30 @@ def test_cli_eval_prints_the_report(tmp_path, capsys, source):
     assert np.isfinite(report["psnr_mean"]) and 0 < report["ssim_mean"] <= 1
 
 
-@pytest.mark.parametrize("argv,msg", [
-    (["--checkpoint", "run/ckpt"], "training slice"),
-    (["--checkpoint", "run/ckpt", "--weights", "w.npz"], "training slice"),
-    ([], "--weights is required"),
-], ids=["checkpoint", "checkpoint-and-weights", "neither"])
+@pytest.mark.parametrize("source", ["checkpoint", "checkpoint-and-weights", "neither"])
 @pytest.mark.parametrize("command", ["eval", "denoise"])
-def test_cli_checkpoint_and_missing_weights_return_2(command, argv, msg, capsys):
-    rest = ["--renders", "r"] if command == "eval" else ["--frame", "f", "--out", "o.exr"]
+def test_cli_checkpoint_and_missing_weights_return_2(command, source, tmp_path, capsys):
+    """--checkpoint runs (an empty checkpoint directory: a warning and random
+    weights, as in the JAX package), --weights wins over it, and only
+    neither returns 2."""
+    _write_render_root(tmp_path / "renders", n=1)
+    ckpt = ["--checkpoint", str(tmp_path / "run" / "checkpoints")]
+    weights = ["--weights", str(REPO / "weights" / "flagship_hq_ema_f16.npz")]
+    argv = {"checkpoint": ckpt, "checkpoint-and-weights": ckpt + weights, "neither": []}[source]
+    out = tmp_path / "o.exr"
+    rest = (["--renders", str(tmp_path / "renders")] if command == "eval"
+            else ["--frame", str(tmp_path / "renders" / "frame0000" / "spp4_seed0"),
+                  "--out", str(out)])
     rc = cli.main([command, "--preset", "flagship-hq", *argv, *rest, "--device", "cpu"])
-    assert rc == 2
-    assert msg in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if source == "neither":
+        assert rc == 2
+        assert "one of --checkpoint or --weights is required" in err
+        return
+    assert rc == 0
+    assert ("no checkpoint under" in err) == (source == "checkpoint")
+    if command == "denoise":
+        assert exr.read_exr(out).shape[:2] == (H, W) and np.isfinite(exr.read_exr(out)).all()
 
 
 def test_sequence_entry_points_without_device_raise(tmp_path):
