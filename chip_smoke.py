@@ -14,7 +14,8 @@ non-zero:
   1. card        name, count, power limit; fails without a CUDA device
   2. build       nvcc every csrc/*.cu (ops/_build.py), ptxas report
   3. kernels     the KPN filter apply vs its plain version at the paths'
-                 shapes (max|d| <= 1e-5 + 1e-5*|ref|); the five per-pass
+                 shapes, the train step's batch among them (max|d| <= 1e-5
+                 + 1e-5*|ref|); the five per-pass
                  fused-ingest kernels and the whole-pixel group encode vs
                  theirs at 1080p, batched and ragged shapes, for every aux
                  subset (1e-6 + 1e-6*|ref|); device times by CUDA-graph
@@ -53,9 +54,16 @@ non-zero:
                  and SSIM on the device), and `deepdenoiser-torch eval` over a
                  small render root written to a temporary directory
   16. train-kernels  K1's backward entry points (d_w, d_noisy) vs the plain
-                 backward at the training shape (16,96,96,3), the joint 1080p
-                 plane, k=3 and C=1, 4 (1e-5 + 1e-5*|ref|); device times by
-                 CUDA-graph replay, bytes, bound, the plain version's time
+                 backward (1e-5 + 1e-5*|ref|) on the inputs the kpn-hq train
+                 step hands over: all 8 slot views (channels 3s..3s+2) of
+                 (16,96,96,24) signal and gradient tensors, the joint 1080p
+                 plane, k=3, C=1 and C=4, ragged and one-row frames; two
+                 launches bitwise equal; device times by CUDA-graph replay at
+                 the training batch (slots 0 and 2, contiguous) and the plane
+                 (slot 0, contiguous), useful bytes (the bound) and the bytes
+                 of the 32 B sectors and 64 B blocks the views touch, resident
+                 blocks per SM, the plain version's time; d_w at slot 0 of 8-
+                 and 16-channel stacks beside the 24
   17. train-parity   one make_train_step step of a small joint KPN (fp32,
                  TF32 off) on the card vs the CPU from the same state and batch:
                  loss and grad_norm within rel 1e-5, parameters within 2 lr,
@@ -68,7 +76,8 @@ non-zero:
                  samples/s, Mpx/s, peak memory, the loss curve; where a step's
                  time goes (the loader alone, fit's loop body whole and split);
                  then 100 make_train_step steps on one fixed batch (the loss
-                 must halve) and flagship-hq's ms/step over 30 beside it
+                 must halve) and flagship-hq's ms/step and loss curve over 30
+                 beside it, in bf16 and in fp32 (TF32 off)
   19. one JSON line {"kernels": [...]}
   (with --profile, the frame phases and the train steps also print device
   time by kernel and the device's busy share, from torch.profiler)
@@ -307,8 +316,9 @@ def _kpn_inputs(shape, k, stack_channels, gen):
 
 def phase_kernels(card: dict) -> dict:
     """The KPN filter apply against its plain version. Returns the timing at
-    the joint path's shape, with the group path's under "group" and the
-    tiled frame's tile batch under "tile"."""
+    the joint path's shape, with the group path's under "group", the
+    tiled frame's tile batch under "tile" and the kpn-hq train step's
+    batch under "train"."""
     from deepdenoiser_tpu_torch.models import kpn
     from deepdenoiser_tpu_torch.ops import kpn_apply
 
@@ -317,6 +327,7 @@ def phase_kernels(card: dict) -> dict:
     # (shape, k, channels of the stack the slot is cut from, path it is timed for)
     cases = [((1, PLANE_H, PLANE_W, 3), 5, 24, "joint"), ((4, PLANE_H, PLANE_W, 3), 5, 14, "group"),
              ((TILE_BATCH, NET_TILE, NET_TILE, 3), 5, 24, "tile"),  # a chunk of a tiled joint frame
+             ((TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3), 5, 24, "train"),  # the kpn-hq train step's
              ((4, 260, 390, 3), 3, 0, None), ((1, 37, 53, 3), 5, 0, None)]
     worst = 0.0
     timings = {}
@@ -334,10 +345,21 @@ def phase_kernels(card: dict) -> dict:
         if bad or not torch.isfinite(got).all():
             raise AssertionError(f"kpn_apply disagrees with its plain version at {shape} k={k}")
         del got, ref, err
-        if path:  # a frame path's shape
+        if path:  # a path's shape
             n, h, w, c = shape
-            kernel_ms = cuda_ms(lambda: kpn_apply.apply_cuda(noisy, weights, k), iters=200 // n)
-            plain_ms = cuda_ms(lambda: kpn.apply_per_pixel_kernels(noisy, weights, k), iters=20 // n)
+            if path == "train":
+                # a 10 us launch: CUDA-graph replay over buffer sets larger
+                # than the L2, as phase 16 times the backward
+                bufs = [(noisy, weights)] + [_kpn_inputs(shape, k, stack_channels, gen)
+                                             for _ in range(10)]
+                kernel_ms = graph_ms([lambda b=b: kpn_apply.apply_cuda(*b, k) for b in bufs])
+                plain_ms = graph_ms([lambda b=b: kpn.apply_per_pixel_kernels(*b, k) for b in bufs],
+                                    replays=3)
+                del bufs
+            else:
+                kernel_ms = cuda_ms(lambda: kpn_apply.apply_cuda(noisy, weights, k), iters=200 // n)
+                plain_ms = cuda_ms(lambda: kpn.apply_per_pixel_kernels(noisy, weights, k),
+                                   iters=20 // n)
             px = n * h * w
             nbytes = px * (c + k * k + c) * 4  # each input read once, output written once
             flops = px * c * k * k * 2
@@ -358,7 +380,7 @@ def phase_kernels(card: dict) -> dict:
         del noisy, weights
     torch.cuda.empty_cache()
     return {**timings["joint"], "group": timings["group"], "tile": timings["tile"],
-            "max_abs_err": worst}
+            "train": timings["train"], "max_abs_err": worst}
 
 
 # The per-pass fused-ingest kernels: name -> (TPU kernel it replaces, passes
@@ -1366,103 +1388,191 @@ BWD_REPLACES = "deepdenoiser_tpu/ops/kpn_pallas.py:158"
 BWD_ENTRIES = {"bwd_weights": "kpn_apply_bwd_weights_f32", "bwd_noisy": "kpn_apply_bwd_noisy_f32"}
 
 
-def _bwd_work(shape, k) -> tuple:
-    """(bytes, operations) of one backward entry point: C + C + k*k floats
-    per pixel read or written once (noisy + g in, d_w out; or g + w in,
-    d_noisy out), and C*k*k multiply-adds."""
-    n, h, w, c = shape
+# the kpn-hq train step's signal and head-output gradient: (N,H,W,24), slot s
+# at channels 3s..3s+2 (models/factory.py, models/kpn.py)
+BWD_STACK = 24
+# timed slot views: slot 0 reads one 32 B sector of each 96 B pixel, slot 2
+# two; "contiguous" is an (N,H,W,3) tensor of its own
+BWD_TIMED = {"train": ((TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3), (0, 2, None)),
+             "plane": ((1, PLANE_H, PLANE_W, 3), (0, None))}
+
+
+def _touched_bytes(t: torch.Tensor, granule: int) -> int:
+    """Bytes of the `granule`-byte aligned blocks of device memory that the
+    elements of the view `t` lie in (its storage starts 512 B aligned)."""
+    off = torch.full((), t.storage_offset(), dtype=torch.int64, device=t.device)
+    for size, stride in zip(t.shape, t.stride()):
+        off = off.unsqueeze(-1) + torch.arange(size, device=t.device) * stride
+    return granule * int(torch.unique(off.flatten() * t.element_size() // granule).numel())
+
+
+def _bwd_work(entry: str, noisy, weights, g, k) -> dict:
+    """Bytes and operations of one backward launch. `bytes`: C + C + k*k
+    floats per pixel, each read or written once (noisy + g in, d_w out; or
+    g + w in, d_noisy out), the bound's count; `moved32` / `moved64`: the
+    bytes of the 32 B sectors / 64 B blocks that the inputs' views touch,
+    plus the contiguous output; C*k*k multiply-adds per pixel."""
+    n, h, w, c = noisy.shape
     px = n * h * w
-    return px * (2 * c + k * k) * 4, px * c * k * k * 2
+    ins, out = ((noisy, g), px * k * k * 4) if entry == "bwd_weights" else ((g, weights), px * c * 4)
+    return {"bytes": px * (2 * c + k * k) * 4, "flops": px * c * k * k * 2,
+            **{f"moved{b}": sum(_touched_bytes(t, b) for t in ins) + out for b in (32, 64)}}
 
 
-def _bwd_inputs(shape, k, gen):
-    """noisy, weights, g on the card as training hands them to the
-    backward: with C=3 the noisy slot is a 3-channel slice of the
-    41-channel fp32 input and g a 3-channel range of the 24-channel output
-    gradient; the weights a permuted view of planar softmax output."""
+def _bwd_inputs(shape, k, gen, slot=None, stack=BWD_STACK):
+    """noisy, weights, g on the card as the kpn-hq train step hands them to
+    the backward. With `slot` s: the noisy slot is channels Cs..Cs+C-1 of
+    the joint model's (N,H,W,stack) fp32 signal (the torch.cat of the four
+    signal runs; in group mode the signal is x[..., :6] of the 14-channel
+    input) and g the same channels of the head output's (N,H,W,stack)
+    gradient (torch.cat's backward hands out that slice). Without: (N,H,W,C)
+    tensors of their own. The weights: a permuted view of planar softmax
+    output, as the head passes them."""
     n, h, w, c = shape
     dev = "cuda"
-    if c == 3:
-        noisy = torch.rand((n, h, w, 41), generator=gen, device=dev)[..., 9:12]
-        g = torch.randn((n, h, w, 24), generator=gen, device=dev)[..., 3:6]
-    else:
+    if slot is None:
         noisy = torch.rand(shape, generator=gen, device=dev)
         g = torch.randn(shape, generator=gen, device=dev)
+    else:
+        noisy = torch.rand((n, h, w, stack), generator=gen, device=dev)[..., c * slot : c * (slot + 1)]
+        g = torch.randn((n, h, w, stack), generator=gen, device=dev)[..., c * slot : c * (slot + 1)]
     logits = torch.randn((n, k * k, h, w), generator=gen, device=dev)
     return noisy, torch.softmax(logits, dim=1).permute(0, 2, 3, 1), g
 
 
+def _ptxas_registers(source: str, fragment: str):
+    """Registers ptxas gave the kernel of csrc/<source>.cu whose mangled
+    name holds `fragment` (None if the report does not name it)."""
+    from deepdenoiser_tpu_torch.ops import _build
+
+    current = None
+    for line in _build.ptxas_report(source).splitlines():
+        if "Compiling entry function" in line:
+            current = line
+        elif current and fragment in current and (m := re.search(r"Used (\d+) registers", line)):
+            return int(m.group(1))
+    return None
+
+
+def _bwd_label(slot, stack=BWD_STACK) -> str:
+    return "contiguous" if slot is None else f"slot {slot} of {stack}"
+
+
 def phase_train_kernels(card: dict) -> dict:
-    """K1's two backward entry points against the plain backward at the
-    training shape, the joint 1080p plane, and k=3 / C=1 and C=4; device
-    time of each at the first two shapes by CUDA-graph replay over buffer
-    sets larger than the L2, in turns. Returns entry -> timing at the
-    training shape, with the plane's under "plane"."""
+    """K1's two backward entry points against the plain backward: every
+    slot view of the training batch's 24-channel tensors, the joint 1080p
+    plane, k=3, C=1 and C=4, ragged and narrow frames; each launched twice
+    and the two results bitwise equal. Device time by CUDA-graph replay
+    over buffer sets larger than the L2, in turns, at the training batch
+    (slots 0 and 2, contiguous) and the plane (slot 0, contiguous), with
+    useful and moved bytes, and d_w at slot 0 of 8- and 16-channel stacks
+    (32 and 64 B pixels) to show what the stride costs. Returns entry ->
+    timing at the training batch's slot 0, the others under "cases"."""
     from deepdenoiser_tpu_torch.models import kpn
     from deepdenoiser_tpu_torch.ops import kpn_apply
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    cases = [((TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3), 5, "train"),
-             ((1, PLANE_H, PLANE_W, 3), 5, "plane"),
-             ((2, 130, 170, 1), 3, None), ((1, 37, 53, 4), 5, None), ((3, 61, 45, 4), 3, None)]
+    train = (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3)
+    checks = ([(train, 5, s) for s in range(8)] + [(train, 5, None), ((1, PLANE_H, PLANE_W, 3), 5, 0),
+              ((2, 130, 170, 1), 3, None), ((1, 37, 53, 4), 5, None), ((3, 61, 45, 4), 3, None),
+              ((2, 20, 37, 3), 5, 5), ((TRAIN_BATCH, 1, 21, 3), 3, 2), ((1, 9, 6, 2), 5, None)])
     worst = {e: 0.0 for e in BWD_ENTRIES}
-    timings = {e: {} for e in BWD_ENTRIES}
-    for shape, k, path in cases:
-        noisy, weights, g = _bwd_inputs(shape, k, gen)
-        got = {"bwd_weights": kpn_apply.bwd_weights_cuda(noisy, g, k),
-               "bwd_noisy": kpn_apply.bwd_noisy_cuda(g, weights, k)}
+    for shape, k, slot in checks:
+        noisy, weights, g = _bwd_inputs(shape, k, gen, slot)
+        got = {"bwd_weights": [kpn_apply.bwd_weights_cuda(noisy, g, k) for _ in range(2)],
+               "bwd_noisy": [kpn_apply.bwd_noisy_cuda(g, weights, k) for _ in range(2)]}
         ref_n, ref_w = kpn.apply_per_pixel_kernels_bwd(noisy, weights, g, k, True)
         torch.cuda.synchronize()
         errs = []
         for entry, ref in (("bwd_weights", ref_w), ("bwd_noisy", ref_n)):
-            err = (got[entry] - ref).abs()
+            first, second = got[entry]
+            err = (first - ref).abs()
             bad = int((err > TOL_ABS + TOL_REL * ref.abs()).sum())
             worst[entry] = max(worst[entry], float(err.max()))
             errs.append(f"{entry} max|d|={float(err.max()):.3e} over tolerance={bad}")
-            if bad or not torch.isfinite(got[entry]).all():
+            if bad or not torch.isfinite(first).all():
                 raise AssertionError(f"kpn_apply.{entry} disagrees with the plain backward at "
-                                     f"{shape} k={k}")
-        log(f"[train-kernels] {shape} k={k}: " + "; ".join(errs))
+                                     f"{shape} k={k} ({_bwd_label(slot)})")
+            if not torch.equal(first, second):
+                raise AssertionError(f"kpn_apply.{entry}: two launches differ at {shape} k={k}")
+        log(f"[train-kernels] {shape} k={k} {_bwd_label(slot)}: " + "; ".join(errs)
+            + "; second launch bitwise equal")
         del noisy, weights, g, got, ref_n, ref_w
-        if path is None:
-            continue
-        nbytes, flops = _bwd_work(shape, k)
-        sets = max(2, min(16, math.ceil(4 * H100_L2_BYTES / nbytes)))
-        bufs = [_bwd_inputs(shape, k, gen) for _ in range(sets)]
-        calls = {"bwd_weights": [lambda b=b: kpn_apply.bwd_weights_cuda(b[0], b[2], k) for b in bufs],
-                 "bwd_noisy": [lambda b=b: kpn_apply.bwd_noisy_cuda(b[2], b[1], k) for b in bufs]}
-        plain = {"bwd_weights": [lambda b=b: kpn.apply_per_pixel_kernels_bwd(*b, k, False)
-                                 for b in bufs],
-                 "bwd_noisy": [lambda b=b: kpn.apply_per_pixel_kernels_bwd(*b, k, True)
-                               for b in bufs]}
-        w1, n1 = graph_ms(calls["bwd_weights"]), graph_ms(calls["bwd_noisy"])
-        n2, w2 = graph_ms(calls["bwd_noisy"]), graph_ms(calls["bwd_weights"])
-        ms = {"bwd_weights": (w1 + w2) / 2, "bwd_noisy": (n1 + n2) / 2}
-        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-        ops_ms = flops / H100_FP32_FLOP_PER_S * 1e3
-        for entry in BWD_ENTRIES:
-            plain_ms = graph_ms(plain[entry], replays=3)
-            eager_ms = cuda_ms(rotating(calls[entry]), iters=20 * sets)
-            timings[entry][path] = {
-                "shape": list(shape), "k": k, "ms": ms[entry], "plain_ms": plain_ms,
-                "eager_ms": eager_ms, "library_ms": None,  # no single PyTorch call computes it
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "bytes": nbytes, "flops": flops, "buffer_sets": sets,
-            }
-            log(f"[train-kernels] kpn_apply.{entry} {shape} k={k} ({path}): "
-                f"{ms[entry] * 1e3:.1f} us/launch ({nbytes / (ms[entry] * 1e-3) / 1e12:.2f} TB/s); "
-                f"bound {timings[entry][path]['bound_ms'] * 1e3:.1f} us by "
-                f"{timings[entry][path]['bound_by']} ({nbytes / 1e6:.1f} MB at 3.35 TB/s = "
-                f"{bytes_ms * 1e3:.1f} us, {flops / 1e9:.3f} GFLOP at 67 TFLOP/s = "
-                f"{ops_ms * 1e3:.1f} us); plain backward "
-                + ("(d_w only)" if entry == "bwd_weights" else "(both gradients)")
-                + f" {plain_ms * 1e3:.1f} us; eager call {eager_ms * 1e3:.1f} us; CUDA-graph "
-                f"replay over {sets} buffer sets, in turns | {card['smi']}")
-        del bufs, calls, plain
-        torch.cuda.empty_cache()
-    return {e: {**t["train"], "plane": t["plane"], "max_abs_err": worst[e]}
+    torch.cuda.empty_cache()
+
+    resident = {e: kpn_apply.resident_blocks(e, 5, 3) for e in BWD_ENTRIES}
+    regs = {e: _ptxas_registers("kpn_apply_bwd", f"{name}ILi5ELi3E")
+            for e, name in (("bwd_weights", "kpn_bwd_weights_kernel"),
+                            ("bwd_noisy", "kpn_bwd_noisy_kernel"))}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[train-kernels] resident blocks per SM at k=5, C=3 (occupancy API): "
+        + ", ".join(f"{e} {r} ({regs[e]} registers)" for e, r in resident.items())
+        + f"; {sms} SMs")
+    timings = {e: {} for e in BWD_ENTRIES}
+    k = 5
+    for path, (shape, slots) in BWD_TIMED.items():
+        for slot in slots:
+            bufs = [_bwd_inputs(shape, k, gen, slot)]
+            work = {e: _bwd_work(e, *bufs[0], k) for e in BWD_ENTRIES}
+            sets = max(2, min(16, math.ceil(4 * H100_L2_BYTES / work["bwd_weights"]["bytes"])))
+            bufs += [_bwd_inputs(shape, k, gen, slot) for _ in range(sets - 1)]
+            calls = {"bwd_weights": [lambda b=b: kpn_apply.bwd_weights_cuda(b[0], b[2], k)
+                                     for b in bufs],
+                     "bwd_noisy": [lambda b=b: kpn_apply.bwd_noisy_cuda(b[2], b[1], k) for b in bufs]}
+            w1, n1 = graph_ms(calls["bwd_weights"]), graph_ms(calls["bwd_noisy"])
+            n2, w2 = graph_ms(calls["bwd_noisy"]), graph_ms(calls["bwd_weights"])
+            ms = {"bwd_weights": (w1 + w2) / 2, "bwd_noisy": (n1 + n2) / 2}
+            for entry in BWD_ENTRIES:
+                wk = work[entry]
+                bytes_ms = wk["bytes"] / H100_BYTES_PER_S * 1e3
+                ops_ms = wk["flops"] / H100_FP32_FLOP_PER_S * 1e3
+                plain_ms = graph_ms([lambda b=b: kpn.apply_per_pixel_kernels_bwd(
+                    *b, k, entry == "bwd_noisy") for b in bufs], replays=3)
+                t = timings[entry][(path, slot)] = {
+                    "shape": list(shape), "k": k, "slot": slot, "stack": BWD_STACK,
+                    "ms": ms[entry], "plain_ms": plain_ms,
+                    "library_ms": None,  # no single PyTorch call computes it
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                    "moved32_bound_ms": wk["moved32"] / H100_BYTES_PER_S * 1e3,
+                    "moved64_bound_ms": wk["moved64"] / H100_BYTES_PER_S * 1e3,
+                    **wk, "buffer_sets": sets, "resident_blocks_per_sm": resident[entry],
+                }
+                log(f"[train-kernels] kpn_apply.{entry} {shape} k={k} ({path}, "
+                    f"{_bwd_label(slot)}): {ms[entry] * 1e3:.1f} us/launch; bound "
+                    f"{t['bound_ms'] * 1e3:.1f} us by {t['bound_by']} ({wk['bytes'] / 1e6:.1f} MB "
+                    f"useful at 3.35 TB/s, {wk['flops'] / 1e9:.3f} GFLOP at 67 TFLOP/s = "
+                    f"{ops_ms * 1e3:.1f} us, {wk['bytes'] / (ms[entry] * 1e-3) / 1e12:.2f} TB/s "
+                    f"useful); moved {wk['moved32'] / 1e6:.1f} MB in 32 B sectors = "
+                    f"{t['moved32_bound_ms'] * 1e3:.1f} us, {wk['moved64'] / 1e6:.1f} MB in "
+                    f"64 B blocks = {t['moved64_bound_ms'] * 1e3:.1f} us ("
+                    f"{wk['moved64'] / (ms[entry] * 1e-3) / 1e12:.2f} TB/s); plain backward "
+                    + ("(d_w only)" if entry == "bwd_weights" else "(both gradients)")
+                    + f" {plain_ms * 1e3:.1f} us"
+                    + f"; {resident[entry]} resident blocks/SM; CUDA-graph replay over {sets} "
+                    f"buffer sets, in turns | {card['smi']}")
+            del bufs, calls
+            torch.cuda.empty_cache()
+    # what the pixel stride costs d_w: slot 0 of 8-, 16- and 24-channel stacks
+    # put a slot's 12 B in one 32 B sector of a 32, 64 and 96 B pixel
+    shape = BWD_TIMED["train"][0]
+    probe = {}
+    for stack in (8, 16):
+        bufs = [_bwd_inputs(shape, k, gen, 0, stack) for _ in range(11)]
+        probe[stack] = graph_ms([lambda b=b: kpn_apply.bwd_weights_cuda(b[0], b[2], k) for b in bufs])
+        probe[f"moved64_{stack}"] = _bwd_work("bwd_weights", *bufs[0], k)["moved64"]
+        del bufs
+    probe[BWD_STACK] = timings["bwd_weights"][("train", 0)]["ms"]
+    probe[3] = timings["bwd_weights"][("train", None)]["ms"]
+    log("[train-kernels] kpn_apply.bwd_weights at the training batch, slot 0 of a stack of S "
+        "channels: " + ", ".join(f"S={s} {probe[s] * 1e3:.1f} us" for s in (3, 8, 16, BWD_STACK))
+        + f" (64 B blocks moved at S=8, 16: {probe['moved64_8'] / 1e6:.1f}, "
+        f"{probe['moved64_16'] / 1e6:.1f} MB) | {card['smi']}")
+    torch.cuda.empty_cache()
+    return {e: {**t[("train", 0)], "max_abs_err": worst[e],
+                "stride_probe_ms": {s: probe[s] for s in (3, 8, 16, BWD_STACK)} if e == "bwd_weights" else None,
+                "cases": {f"{p} {_bwd_label(s)}": v for (p, s), v in t.items()}}
             for e, t in timings.items()}
 
 
@@ -1785,8 +1895,15 @@ def phase_train(frame: dict, card: dict, profile: bool = False) -> dict:
     raw = {k: v.to("cuda") for k, v in loader.make_dataset(shards_dir / "train", cfg.data,
                                                            training=False)[(0, 0)].items()}
     batch = loader.make_batch_encoder(cfg.data)(raw)
-    for preset, k1, n in (("kpn-hq", 8, OVERFIT_STEPS), ("flagship-hq", 0, TIMED_STEPS)):
+    # flagship-hq also in fp32 (TF32 off), beside the CPU comparison of both
+    # packages on the same recipe (tests/torch_flagship_hq_recipe.py)
+    for preset, dtype, k1, n in (("kpn-hq", None, 8, OVERFIT_STEPS),
+                                 ("flagship-hq", None, 0, TIMED_STEPS),
+                                 ("flagship-hq", "float32", 0, TIMED_STEPS)):
         mcfg = config.validate_channels(config.PRESETS[preset]).model
+        if dtype:
+            mcfg = dataclasses.replace(mcfg, compute_dtype=dtype)
+        label = f"{preset} {mcfg.compute_dtype}"
         tcfg = dataclasses.replace(cfg.train, learning_rate=OVERFIT_LR, warmup_steps=0,
                                    schedule="constant")
         state = train_lib.create_state(mcfg, tcfg, seed=0)
@@ -1794,27 +1911,28 @@ def phase_train(frame: dict, card: dict, profile: bool = False) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        losses, times = _steps_timed(state, step, batch, n)
-        expect_launches(f"{preset} train steps", read_launches(), n, kpn_apply=k1,
+        with full_fp32() if dtype == "float32" else contextlib.nullcontext():
+            losses, times = _steps_timed(state, step, batch, n)
+        expect_launches(f"{label} train steps", read_launches(), n, kpn_apply=k1,
                         kpn_apply_bwd_weights=k1)
         ms = statistics.median(times[TRAIN_WARMUP:])
-        res[preset] = {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                       "first_loss": losses[0], "last_loss": losses[-1], "steps": n}
-        log(f"[train] {preset} make_train_step, batch {TRAIN_BATCH}, crop {TRAIN_CROP}, bf16, one "
+        res[label] = {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "first_loss": losses[0], "last_loss": losses[-1], "steps": n}
+        log(f"[train] {label} make_train_step, batch {TRAIN_BATCH}, crop {TRAIN_CROP}, one "
             f"fixed batch on the card, Adam lr {OVERFIT_LR} constant: {ms:.2f} ms/step median of "
             f"{n - TRAIN_WARMUP} (min {min(times[TRAIN_WARMUP:]):.2f}, max "
             f"{max(times[TRAIN_WARMUP:]):.2f}; host clock, each step closed by reading its loss), "
             f"{TRAIN_BATCH / ms * 1e3:.1f} samples/s, {px / ms / 1e3:.2f} Mpx/s, peak "
-            f"{res[preset]['peak_gib']:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+            f"{res[label]['peak_gib']:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f} "
             f"({losses[-1] / losses[0]:.3f}x; at step 30 {losses[29] / losses[0]:.3f}x); K1 launches per step {k1} forward, {k1} backward "
             f"| {card['smi']}")
-        log(f"[train] {preset} fixed-batch loss curve: " + " ".join(f"{v:.4f}" for v in losses))
+        log(f"[train] {label} fixed-batch loss curve: " + " ".join(f"{v:.4f}" for v in losses))
         if not all(math.isfinite(v) for v in losses):
-            raise AssertionError(f"{preset}: non-finite loss {losses}")
+            raise AssertionError(f"{label}: non-finite loss {losses}")
         if preset == "kpn-hq" and not losses[-1] < 0.5 * losses[0]:
             raise AssertionError(f"kpn-hq overfit: loss {losses[0]} -> {losses[-1]}, not below half")
         if profile:
-            profile_frames(f"{preset} train step", lambda: step(state, batch), card)
+            profile_frames(f"{label} train step", lambda: step(state, batch), card)
         del state, step
         torch.cuda.empty_cache()
     return res
@@ -1878,7 +1996,7 @@ def main(argv=None) -> int:
     phase_train_parity(card)
     train_res = phase_train(frame, card, profile=args.profile)
 
-    group, tile = kern["group"], kern["tile"]
+    group, tile, train_fwd = kern["group"], kern["tile"], kern["train"]
     kernels = [_kernel_row(
         "kpn_apply", "deepdenoiser_tpu_torch/csrc/kpn_apply.cu",
         "deepdenoiser_tpu/ops/kpn_pallas.py:59", kpn_res["cli_launches"], kern,
@@ -1892,21 +2010,29 @@ def main(argv=None) -> int:
         tile_bound_ms=tile["bound_ms"], tile_bytes=tile["bytes"],
         launches_per_train_step=train_res["k1_step_launches"] / TRAIN_STEPS,
         launches_train_eval=train_res["k1_eval_launches"],
+        train_shape=train_fwd["shape"], train_ms=train_fwd["ms"],
+        train_plain_ms=train_fwd["plain_ms"], train_bound_ms=train_fwd["bound_ms"],
     )]
     for entry, fn in BWD_ENTRIES.items():
-        t, plane = train_kern[entry], train_kern[entry]["plane"]
+        t = train_kern[entry]
         # launches: of the first `train` call (20 steps, its eval runs no
         # backward); d_noisy has no caller on any entry point (training's
         # signal is a slice of the network input): KpnApply needs it for the
-        # signal's gradient, and it is held to the plain backward only
+        # signal's gradient, and it is held to the plain backward only. The
+        # row's own numbers are the training batch's slot 0 view; "cases"
+        # holds every timed shape and view.
         kernels.append(_kernel_row(
             f"kpn_apply.{entry}", "deepdenoiser_tpu_torch/csrc/kpn_apply_bwd.cu", BWD_REPLACES,
             train_res["launches"][f"kpn_apply_{entry}"], t, on_path=entry != "bwd_noisy",
-            k=t["k"], entry_point=fn,
+            k=t["k"], entry_point=fn, slot=t["slot"], stack=t["stack"],
             launches_per_train_step=train_res["launches"][f"kpn_apply_{entry}"] / TRAIN_STEPS,
-            eager_ms=t["eager_ms"], buffer_sets=t["buffer_sets"],
-            plane_shape=plane["shape"], plane_ms=plane["ms"], plane_plain_ms=plane["plain_ms"],
-            plane_bound_ms=plane["bound_ms"], plane_bytes=plane["bytes"],
+            moved32=t["moved32"], moved64=t["moved64"], moved32_bound_ms=t["moved32_bound_ms"],
+            moved64_bound_ms=t["moved64_bound_ms"], buffer_sets=t["buffer_sets"],
+            resident_blocks_per_sm=t["resident_blocks_per_sm"],
+            stride_probe_ms=t["stride_probe_ms"],
+            cases={name: {key: c[key] for key in ("shape", "slot", "ms", "plain_ms", "bound_ms",
+                                                  "moved32_bound_ms", "moved64_bound_ms")}
+                   for name, c in t["cases"].items()},
         ))
     group_t = ingest.pop("group_encode")
     for name, t in ingest.items():
@@ -1936,9 +2062,11 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernels launched on no path: {idle}")
     log(f"[done] all phases in {time.perf_counter() - t_start:.0f} s")
     log("[summary] train ms/step: kpn-hq cli {:.2f} (loader included), fit's loop body {:.2f}, "
-        "make_train_step {:.2f}; flagship-hq make_train_step {:.2f}; loader alone {:.2f} "
-        "ms/batch".format(train_res["cli_ms"], train_res["loop_whole_ms"], train_res["kpn-hq"]["ms"],
-                          train_res["flagship-hq"]["ms"], train_res["loader_ms"]))
+        "make_train_step {:.2f}; flagship-hq make_train_step {:.2f} (fp32 {:.2f}); loader alone "
+        "{:.2f} ms/batch".format(train_res["cli_ms"], train_res["loop_whole_ms"],
+                                 train_res["kpn-hq bfloat16"]["ms"],
+                                 train_res["flagship-hq bfloat16"]["ms"],
+                                 train_res["flagship-hq float32"]["ms"], train_res["loader_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],

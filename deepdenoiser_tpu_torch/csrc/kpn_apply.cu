@@ -18,11 +18,13 @@
 // kernel DMAs a padded planar copy; that design is not carried over).
 //
 // Layout: both inputs are taken with element strides. The noisy signal is
-// a 3-channel slice of the model's fp32 NHWC input (channel stride 1,
-// pixel stride = the input's channel count) and the weights come from the
-// head's softmax in planar (N, k*k, H, W) form, seen as an (N, H, W, k*k)
-// view: passing strides takes both as they are, with no copy, and makes
-// the weight reads of neighbouring threads (neighbouring x) coalesced.
+// a 3-channel slot of the fp32 signal (channel stride 1): in joint mode
+// channels 3s..3s+2 of the 24-channel torch.cat of the four signal runs
+// (pixel stride 24), in group mode of x[..., :6] of the 14-channel network
+// input (pixel stride 14). The weights come from the head's softmax in
+// planar (N, k*k, H, W) form, seen as an (N, H, W, k*k) view: passing
+// strides takes both as they are, with no copy, and makes the weight reads
+// of neighbouring threads (neighbouring x) coalesced.
 // The output is written contiguous NHWC (N, H, W, C).
 //
 // One thread per output pixel in a 32x8 block; C <= 4 channels.

@@ -58,6 +58,21 @@ def _kernel(lib: str, name: str):
     return fn
 
 
+BWD_ENTRIES = ("bwd_weights", "bwd_noisy")
+
+
+def resident_blocks(entry: str, kernel_size: int, channels: int) -> int:
+    """Blocks of a backward kernel ("bwd_weights" or "bwd_noisy") that one
+    SM of the current device holds at once, from the occupancy API (the
+    registers and shared memory that ptxas gave the kernel)."""
+    fn = _build.load("kpn_apply_bwd").kpn_apply_bwd_resident_blocks
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    blocks = fn(BWD_ENTRIES.index(entry), kernel_size, channels)
+    if blocks < 1:
+        raise RuntimeError(f"kpn_apply {entry}: occupancy query failed (cudaError {-blocks})")
+    return blocks
+
+
 def apply_per_pixel_kernels(noisy: Tensor, weights: Tensor, kernel_size: int) -> Tensor:
     """Filter `noisy` with per-pixel kernels, differentiably: the CUDA
     kernels on the card, the plain versions for CPU tensors."""

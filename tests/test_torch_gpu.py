@@ -413,3 +413,75 @@ def test_kpn_autograd_on_the_card_launches_only_the_gradients_asked_for(cuda):
         kpn_apply.reset_launches()
         kpn_apply.apply_per_pixel_kernels(stack[..., 3:6], torch.softmax(logits, 1).permute(0, 2, 3, 1), k)
         assert (kpn_apply.launches, kpn_apply.bwd_weights_launches) == (1, 0)
+
+
+def _slot_inputs(shape, k, dev, stack, slot, seed=0):
+    """noisy and g as channels C*slot.. of (N,H,W,stack) tensors (the train
+    step's slot views; stack=None: (N,H,W,C) of their own), and the
+    weights as the permuted view of a planar softmax, as the head passes
+    them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, h, w, c = shape
+    if stack is None:
+        noisy = torch.rand(shape, generator=gen, device=dev)
+        g = torch.randn(shape, generator=gen, device=dev)
+    else:
+        noisy = torch.rand((n, h, w, stack), generator=gen, device=dev)[..., c * slot : c * (slot + 1)]
+        g = torch.randn((n, h, w, stack), generator=gen, device=dev)[..., c * slot : c * (slot + 1)]
+    logits = torch.randn((n, k * k, h, w), generator=gen, device=dev)
+    return noisy, torch.softmax(logits, 1).permute(0, 2, 3, 1), g
+
+
+def _backward_matches(noisy, weights, g, k):
+    kpn_apply.reset_launches()
+    d_w = [kpn_apply.bwd_weights_cuda(noisy, g, k) for _ in range(2)]
+    d_noisy = [kpn_apply.bwd_noisy_cuda(g, weights, k) for _ in range(2)]
+    assert (kpn_apply.bwd_weights_launches, kpn_apply.bwd_noisy_launches) == (2, 2)
+    want_noisy, want_w = kpn.apply_per_pixel_kernels_bwd(noisy, weights, g, k, True)
+    torch.cuda.synchronize()
+    assert d_w[0].shape == want_w.shape and d_noisy[0].shape == want_noisy.shape
+    assert d_noisy[0].is_contiguous() and d_w[0].permute(0, 3, 1, 2).is_contiguous()
+    assert _within(d_w[0], want_w) and _within(d_noisy[0], want_noisy)
+    # a second launch is bitwise the same (no atomics, a fixed summation order)
+    assert torch.equal(d_w[0], d_w[1]) and torch.equal(d_noisy[0], d_noisy[1])
+
+
+@pytest.mark.parametrize("slot", range(8))
+def test_kpn_backward_kernels_take_every_slot_view(cuda, slot):
+    """Slot s of the joint model's 24-channel signal and output gradient:
+    a base 12*s bytes into a 96 B pixel, 16 B aligned for slots 0 and 4
+    only; slots 2 and 5 straddle two 32 B sectors."""
+    _backward_matches(*_slot_inputs((2, 20, 40, 3), 5, cuda, 24, slot), 5)
+
+
+@pytest.mark.parametrize("shape,k,stack,slot", [
+    ((1, 17, 37, 3), 5, 24, 3),     # W not a multiple of 4 nor of the 32-pixel tile
+    ((2, 9, 6, 3), 5, 24, 1),       # W under one tile and not a multiple of 4
+    ((2, 9, 12, 3), 3, 14, 1),      # W under one tile, a multiple of 4; a group-mode slot
+    ((1, 1, 45, 3), 5, 24, 6),      # H = 1
+    ((16, 96, 96, 3), 3, 24, 5),    # the training batch at k = 3
+    ((16, 8, 40, 3), 5, 24, 2),     # N = 16
+    ((1, 13, 40, 1), 5, 4, 2),      # C = 1
+    ((1, 13, 41, 2), 3, 4, 1),      # C = 2, ragged
+    ((2, 11, 36, 4), 5, None, 0),   # C = 4: W*C a multiple of 4, 16 B rows
+    ((1, 11, 33, 4), 3, 8, 1),      # C = 4, ragged
+], ids=str)
+def test_kpn_backward_kernels_on_ragged_narrow_and_strided_frames(cuda, shape, k, stack, slot):
+    _backward_matches(*_slot_inputs(shape, k, cuda, stack, slot, seed=slot + 1), k)
+
+
+def test_kpn_backward_kernels_take_contiguous_weights(cuda):
+    """(N,H,W,k²) weights of their own (no planar rows): d_noisy loads
+    each tap through the strides."""
+    noisy, weights = _inputs((2, 19, 40, 3), 5, cuda, seed=6)
+    g = torch.randn(noisy.shape, generator=torch.Generator(device=cuda).manual_seed(7), device=cuda)
+    _backward_matches(noisy, weights.contiguous(), g, 5)
+
+
+def test_kpn_backward_kernels_fill_the_card_at_the_training_batch(cuda):
+    """At (16,96,96,3), k=5, each kernel's 576 blocks of 32x8 pixels are
+    all resident at once: no partial second wave."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tiles = 16 * (96 // 8) * (96 // 32)
+    for entry in kpn_apply.BWD_ENTRIES:
+        assert kpn_apply.resident_blocks(entry, 5, 3) * sms >= tiles, entry

@@ -1,6 +1,7 @@
 """The KPN filter apply's backward: the port's plain backward
 (models/kpn.apply_per_pixel_kernels_bwd) against the JAX package's
-custom_vjp backward (_kpn_pallas_bwd) and jax.grad of the Pallas apply in
+custom_vjp backward (_kpn_pallas_bwd), also on the strided slot views
+that training hands over, and jax.grad of the Pallas apply in
 interpret mode; the autograd function ops/kpn_apply.KpnApply on the CPU;
 and the KPN head's gradients against jax.grad of the JAX head.
 
@@ -42,6 +43,33 @@ def test_plain_backward_matches_the_custom_vjp_backward(k, c):
         k, True, (jnp.asarray(noisy), jnp.asarray(weights)), jnp.asarray(g))
     got_n, got_w = kpn.apply_per_pixel_kernels_bwd(
         torch.from_numpy(noisy), torch.from_numpy(weights), torch.from_numpy(g), k, True)
+    np.testing.assert_allclose(got_n.numpy(), np.asarray(want_n), atol=ATOL)
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), atol=ATOL)
+
+
+@pytest.mark.parametrize("signal_stack,grad_stack,slot",
+                         [(24, 24, s) for s in range(8)] + [(14, 6, 0), (14, 6, 1)],
+                         ids=str)
+def test_plain_backward_on_slot_views_matches_the_custom_vjp_backward(signal_stack, grad_stack,
+                                                                      slot):
+    """The strided views the train step hands the backward: joint mode's
+    slot s is channels 3s..3s+2 of the (N,H,W,24) signal and of the head
+    output's (N,H,W,24) gradient; group mode's signal is x[..., :6] of the
+    14-channel input, its gradient a 6-channel one. The port reads the
+    views through their strides; JAX gets the same values as arrays."""
+    k = 5
+    rng = np.random.default_rng(100 + signal_stack + slot)
+    n, h, w = 2, 9, 12
+    signal = rng.random((n, h, w, signal_stack)).astype(np.float32)
+    grad = rng.standard_normal((n, h, w, grad_stack)).astype(np.float32)
+    weights = np.array(jax.nn.softmax(jnp.asarray(
+        rng.standard_normal((n, h, w, k * k)).astype(np.float32)), axis=-1))
+    ch = slice(3 * slot, 3 * slot + 3)
+    want_n, want_w = kpn_pallas._kpn_pallas_bwd(
+        k, True, (jnp.asarray(signal[..., ch]), jnp.asarray(weights)), jnp.asarray(grad[..., ch]))
+    noisy, g = torch.from_numpy(signal)[..., ch], torch.from_numpy(grad)[..., ch]
+    assert noisy.stride(2) == signal_stack and g.stride(2) == grad_stack
+    got_n, got_w = kpn.apply_per_pixel_kernels_bwd(noisy, torch.from_numpy(weights), g, k, True)
     np.testing.assert_allclose(got_n.numpy(), np.asarray(want_n), atol=ATOL)
     np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), atol=ATOL)
 
