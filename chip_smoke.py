@@ -6,7 +6,8 @@ Drives the port's main paths through the entry points a user calls —
 `deepdenoiser-torch denoise` (cli.main) and the frame factories of
 inference/pipeline.py at 1080p with the release weights; `synth-data`,
 `prepare-data`, `train` and `denoise --checkpoint` for kpn-hq at the
-training recipe's batch and crop — and checks every CUDA kernel against
+training recipe's batch and crop; the path tracer's 1080p frame and the
+train step fed by batches made on the card — and checks every CUDA kernel against
 its plain PyTorch version on the card. Phases, each
 printing its results on its own lines; any failure raises and the run exits
 non-zero:
@@ -78,7 +79,26 @@ non-zero:
                  then 100 make_train_step steps on one fixed batch (the loss
                  must halve) and flagship-hq's ms/step and loss curve over 30
                  beside it, in bf16 and in fp32 (TF32 off)
-  19. one JSON line {"kernels": [...]}
+  19. mc        bench.py's MC column: make_scene(0) traced at 1080p on the card
+                 (data/mc_tracer.py), GT 1024 spp timed by host clock around a
+                 synchronize, noisy 4 spp; combined == recompose; the card
+                 against the port on the CPU at 96x128 for scenes 0 and 5 (the
+                 deterministic buffers under the flip bar: at most 0.2 % of the
+                 pixels differ, each within 1 px of an edge; direct and
+                 indirect within Monte-Carlo error); kpn-hq (8 K1 launches a
+                 frame) and flagship-mc through make_joint_frame_denoiser on the
+                 traced frame: gain, bf16 within 0.05 dB of fp32 (flagship-mc:
+                 0.15 dB, ROADMAP.md §3 (l)), ms per frame;
+                 both models' gains on bench.py's four families at 1080p
+                 (Fourier, spheres, boxes with add_mc_noise(spp=4, seed=1), mc;
+                 the two holdouts made by a worker process started with the run)
+  20. device-batch  training_batch (data/synthetic_device.py) at batch 16,
+                 crop 96, joint, each of the five families on the card: ms a
+                 batch by CUDA events, peak memory; then the kpn-hq train step
+                 (phase 18's recipe) fed only by mixed-mc batches: ms a step
+                 with the synthesis and the step alone, beside phase 18's; 8
+                 K1 and 8 d_w launches a step; finite loss
+  21. one JSON line {"kernels": [...]}; every phase's seconds on [time] lines
   (with --profile, the frame phases and the train steps also print device
   time by kernel and the device's busy share, from torch.profiler)
   then the card's name and power limit as nvidia-smi prints them, and last
@@ -91,12 +111,14 @@ in .gitignore) and writes its scratch frame and configs there.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
 import itertools
 import json
 import math
+import multiprocessing
 import os
 import re
 import statistics
@@ -683,9 +705,11 @@ def profile_frames(preset: str, run, card: dict, frames: int = 3, top: int = 12)
 
 
 def _frame_on_card(frame: dict):
+    """(clean combined, noisy combined) on the card; the passes are numpy
+    arrays or tensors already there."""
     dev = torch.device("cuda")
-    return (torch.from_numpy(frame["clean"]["combined"]).to(dev),
-            torch.from_numpy(frame["noisy"]["combined"]).to(dev))
+    return (torch.as_tensor(frame["clean"]["combined"], device=dev),
+            torch.as_tensor(frame["noisy"]["combined"], device=dev))
 
 
 def _cli_denoise(what: str, frame: dict, source: list, weights: str, mode: str):
@@ -712,8 +736,11 @@ def _cli_denoise(what: str, frame: dict, source: list, weights: str, mode: str):
 def phase_preset(preset: str, weights: str, frame: dict, card: dict,
                  kernel_launches_per_frame: int, check_fp32: bool,
                  profile: bool = False, timed_frames: int = TIMED_FRAMES,
-                 gain_tol: float = GAIN_TOL_DB) -> dict:
-    """A joint-mode preset: through the CLI, then through the factory, timed."""
+                 gain_tol: float = GAIN_TOL_DB, cli: bool = True, label: str = "",
+                 other_frames: dict = None) -> dict:
+    """A joint-mode preset: through the CLI (unless `cli` is False), then
+    through the factory, timed; `other_frames` ({name: (noisy passes on the
+    card, clean combined)}) are denoised once each for their gains."""
     from deepdenoiser_tpu_torch import config, weights_io
     from deepdenoiser_tpu_torch.inference import pipeline
     from deepdenoiser_tpu_torch.models import kpn
@@ -723,18 +750,19 @@ def phase_preset(preset: str, weights: str, frame: dict, card: dict,
     clean_c, noisy_c = _frame_on_card(frame)
     wpath = str(ROOT / "weights" / weights)
     res = {"preset": preset}
+    label = label or preset
 
-    # the user's entry point
-    cli_out, cli_launches = _cli_denoise(preset, frame, ["--preset", preset], wpath, "joint")
-    expect_launches(f"{preset} cli frame", cli_launches, kpn_apply=kernel_launches_per_frame)
-    res["cli_launches"] = cli_launches["kpn_apply"]
-    res["cli_gain_db"] = _gain_db(cli_out, noisy_c, clean_c)
+    if cli:  # the user's entry point
+        cli_out, cli_launches = _cli_denoise(preset, frame, ["--preset", preset], wpath, "joint")
+        expect_launches(f"{label} cli frame", cli_launches, kpn_apply=kernel_launches_per_frame)
+        res["cli_launches"] = cli_launches["kpn_apply"]
+        res["cli_gain_db"] = _gain_db(cli_out, noisy_c, clean_c)
 
     # the same path through the pipeline factory, timed
     cfg = config.validate_channels(config.PRESETS[preset])
     params = weights_io.load_release_params(wpath)
     denoise, grid = pipeline.make_joint_frame_denoiser(cfg.model, cfg.infer, FRAME_H, FRAME_W, params)
-    frame_dev = {k: torch.from_numpy(v).to(dev) for k, v in noisy.items()}
+    frame_dev = {k: torch.as_tensor(v, device=dev) for k, v in noisy.items()}
     for _ in range(2):
         out = denoise(frame_dev)
     torch.cuda.synchronize()
@@ -742,10 +770,10 @@ def phase_preset(preset: str, weights: str, frame: dict, card: dict,
     reset_launches()
     times = time_frames(lambda: denoise(frame_dev), timed_frames)
     launches = read_launches()
-    expect_launches(f"{preset} over {timed_frames} frames", launches, timed_frames,
+    expect_launches(f"{label} over {timed_frames} frames", launches, timed_frames,
                     kpn_apply=kernel_launches_per_frame)
     out = denoise(frame_dev)
-    check_frame(preset, out)
+    check_frame(label, out)
     res.update(
         grid=f"{grid.net_h}x{grid.net_w} (halo {grid.halo})",
         gain_db=_gain_db(out["combined"], noisy_c, clean_c),
@@ -753,9 +781,16 @@ def phase_preset(preset: str, weights: str, frame: dict, card: dict,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         launches_per_frame=launches["kpn_apply"] / timed_frames,
     )
-    if res["gain_db"] <= 0 or res["cli_gain_db"] <= 0:
-        raise AssertionError(f"{preset}: no PSNR gain ({res['gain_db']}, cli {res['cli_gain_db']})")
+    if res["gain_db"] <= 0 or res.get("cli_gain_db", 1.0) <= 0:
+        raise AssertionError(f"{label}: no PSNR gain ({res['gain_db']}, cli {res.get('cli_gain_db')})")
     del out
+    res["other_gains_db"] = {}
+    for name, (other_noisy, other_clean) in (other_frames or {}).items():
+        other = denoise(other_noisy)
+        check_frame(f"{label} on {name}", other)
+        res["other_gains_db"][name] = _gain_db(other["combined"], other_noisy["combined"],
+                                               other_clean)
+        del other
 
     if check_fp32:
         # fp32 reference: full-precision convs (TF32 off for cuDNN and
@@ -770,22 +805,24 @@ def phase_preset(preset: str, weights: str, frame: dict, card: dict,
         res["fp32_gain_db"] = _gain_db(ref_out, noisy_c, clean_c)
         diff = abs(res["gain_db"] - res["fp32_gain_db"])
         if not torch.isfinite(ref_out).all() or diff > gain_tol:
-            raise AssertionError(f"{preset}: bf16 gain {res['gain_db']:.4f} dB vs fp32 "
+            raise AssertionError(f"{label}: bf16 gain {res['gain_db']:.4f} dB vs fp32 "
                                  f"{res['fp32_gain_db']:.4f} dB differ by {diff:.4f} > {gain_tol}")
         del ref_fn, ref_out
     if profile:
         profile_frames(preset, lambda: denoise(frame_dev), card)
     del denoise
     torch.cuda.empty_cache()
-    log(f"[{preset}] 1080p joint frame, grid {res['grid']}: "
+    log(f"[{label}] 1080p joint frame, grid {res['grid']}: "
         f"{res['ms_median']:.2f} ms/frame median of {timed_frames} "
         f"(min {res['ms_min']:.2f}, max {res['ms_max']:.2f}; host clock around synchronize), "
         f"peak {res['peak_gib']:.2f} GiB | {card['smi']}")
-    log(f"[{preset}] PSNR gain {res['gain_db']:.4f} dB (cli {res['cli_gain_db']:.4f} dB"
+    log(f"[{label}] PSNR gain {res['gain_db']:.4f} dB"
+        + (f" (cli {res['cli_gain_db']:.4f} dB)" if cli else "")
         + (f", fp32 reference {res['fp32_gain_db']:.4f} dB, limit {gain_tol} dB apart"
            if check_fp32 else "")
-        + f"); kpn_apply launches: cli frame {res['cli_launches']}, "
-        f"{res['launches_per_frame']:g} per timed frame")
+        + "; kpn_apply launches: "
+        + (f"cli frame {res['cli_launches']}, " if cli else "")
+        + f"{res['launches_per_frame']:g} per timed frame")
     return res
 
 
@@ -1938,6 +1975,239 @@ def phase_train(frame: dict, card: dict, profile: bool = False) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# synthesis: the traced Monte-Carlo frame and batches made on the card
+# --------------------------------------------------------------------------
+
+MC_GT_SPP, MC_SPP = 1024, 4  # bench.py's MC column: make_scene(0), GT 1024 spp, noisy 4 spp
+MC_CHECK_H, MC_CHECK_W, MC_CHECK_SPP = 96, 128, 64  # the card against the port on the CPU
+MC_FLIP_SHARE = 0.002  # at most 0.2 % of pixels may flip (a silhouette or checker edge)
+MC_RMS_RATIO = 1.5  # RMS(card - CPU) against RMS(CPU - CPU), two independent estimates
+# bf16 against fp32 for flagship-mc on the traced frame: its output sits
+# ~19 dB over the 4-spp input against a 1024-spp GT, where bf16 rounding
+# shows; the JAX package's own bf16 runs 0.097 dB from its fp32 at 540x960
+# (the port's 0.057; tests/torch_flagship_mc_bf16_gap.py on the CPU). kpn-hq
+# keeps GAIN_TOL_DB on the same frame
+MC_FLAGSHIP_GAIN_TOL_DB = 0.15
+MC_DETERMINISTIC = ("normal", "depth", "alpha", "emission", "environment", "diffuse_color",
+                    "glossy_color", "subsurface_color", "transmission_color")
+DEVICE_BATCH_STEPS = 10  # make_train_step steps fed by training_batch(family="mixed-mc")
+
+
+def _holdout_frames(h: int, w: int) -> dict:
+    """bench.py's two holdout families at h x w with its Gaussian noise
+    (add_mc_noise(spp=4, seed=1)): {family: (noisy passes, clean combined,
+    seconds)}. numpy on the host; run in a worker process beside the card."""
+    from deepdenoiser_tpu_torch.data import synthetic, synthetic_boxes, synthetic_spheres
+
+    out = {}
+    for fam, mod in (("spheres", synthetic_spheres), ("boxes", synthetic_boxes)):
+        t0 = time.perf_counter()
+        clean = mod.generate_clean_passes(h, w, seed=0)
+        out[fam] = (synthetic.add_mc_noise(clean, spp=4, seed=1), clean["combined"],
+                    time.perf_counter() - t0)
+    return out
+
+
+def _near_edges(ref: dict) -> torch.Tensor:
+    """(H, W) bool: pixels within 1 px of an object silhouette or a checker
+    edge of `ref`: a change of alpha or of albedo between neighbours."""
+    import torch.nn.functional as F
+
+    alpha, albedo = ref["alpha"][..., 0], ref["diffuse_color"]
+    edge = torch.zeros_like(alpha, dtype=torch.bool)
+    for dim in (0, 1):
+        jump = (alpha.diff(dim=dim) != 0) | (albedo.diff(dim=dim).abs().amax(-1) > 1e-3)
+        n = jump.shape[dim]
+        edge.narrow(dim, 0, n).logical_or_(jump)
+        edge.narrow(dim, 1, n).logical_or_(jump)
+    return F.max_pool2d(edge.float()[None, None], 3, stride=1, padding=1)[0, 0] > 0
+
+
+def _deterministic_flips(what: str, got: dict, ref: dict) -> int:
+    """The deterministic buffers of two renders of one scene agree within
+    1e-5 + 1e-5*|ref| except at flipped pixels (a silhouette test or a
+    checker floor that rounds the other way): at most MC_FLIP_SHARE of the
+    pixels, each within 1 px of an edge of `ref`. Returns the flips."""
+    bad = torch.zeros_like(ref["alpha"][..., 0], dtype=torch.bool)
+    for name in MC_DETERMINISTIC:
+        r = ref[name]
+        bad |= ((got[name] - r).abs() > 1e-5 + 1e-5 * r.abs()).any(-1)
+    flips, off_edge = int(bad.sum()), int((bad & ~_near_edges(ref)).sum())
+    if flips > MC_FLIP_SHARE * bad.numel() or off_edge:
+        raise AssertionError(f"{what}: {flips} pixels differ ({off_edge} away from any edge) "
+                             f"of {bad.numel()}")
+    return flips
+
+
+def _mc_card_against_cpu() -> dict:
+    """The tracer on the card against the port on the CPU at a small size:
+    the deterministic buffers under the flip bar on an emitter scene (0)
+    and one without (5); the direct and indirect estimates within
+    Monte-Carlo error: RMS(card - CPU) <= MC_RMS_RATIO * RMS of two
+    independent CPU estimates, at MC_CHECK_SPP samples."""
+    from deepdenoiser_tpu_torch.data import mc_tracer
+    from deepdenoiser_tpu_torch.data.draws import seeded
+
+    res = {}
+    for seed in (0, 5):
+        renders = {}
+        for name, dev, key in (("card", "cuda", 1), ("cpu", "cpu", 1), ("cpu2", "cpu", 2)):
+            scene = mc_tracer.make_scene(seed, device=dev)
+            out = mc_tracer.render(scene, MC_CHECK_H, MC_CHECK_W, MC_CHECK_SPP, seeded(key, dev))
+            renders[name] = {k: v.cpu() for k, v in out.items()}
+        card, cpu, cpu2 = renders["card"], renders["cpu"], renders["cpu2"]
+        flips = _deterministic_flips(f"mc scene {seed} card vs CPU", card, cpu)
+        ratios = {}
+        for p in ("diffuse_direct", "diffuse_indirect"):
+            spread = float((cpu[p] - cpu2[p]).pow(2).mean().sqrt())
+            ratios[p] = max(float((card[p] - c[p]).pow(2).mean().sqrt()) for c in (cpu, cpu2)
+                            ) / spread
+            if not ratios[p] <= MC_RMS_RATIO:
+                raise AssertionError(f"mc scene {seed}: {p} card vs CPU RMS {ratios[p]:.3f} x "
+                                     f"the CPU's own spread (limit {MC_RMS_RATIO})")
+        res[seed] = {"flips": flips, "rms_ratio": ratios}
+    return res
+
+
+def phase_mc(frame: dict, card: dict, holdouts) -> dict:
+    """bench.py's MC column on the card: make_scene(0) traced at 1080p (GT
+    1024 spp, timed; noisy 4 spp), checked against the CPU at a small size,
+    and denoised by kpn-hq and flagship-mc through make_joint_frame_denoiser;
+    both models' gains on the four bench.py families."""
+    from deepdenoiser_tpu_torch import transforms
+    from deepdenoiser_tpu_torch.data import mc_tracer
+
+    res = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gt = mc_tracer.generate_clean_passes(FRAME_H, FRAME_W, seed=0, spp=MC_GT_SPP)
+    torch.cuda.synchronize()
+    res["gt_s"] = time.perf_counter() - t0
+    res["gt_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    noisy = mc_tracer.generate_noisy_passes(FRAME_H, FRAME_W, seed=0, spp=MC_SPP,
+                                            sample_seed=MC_SPP)
+    torch.cuda.synchronize()
+    res["noisy_s"] = time.perf_counter() - t0
+    for what, f in (("GT", gt), ("noisy", noisy)):
+        check_frame(f"mc {what}", f)
+        err = float((f["combined"] - transforms.recompose(f)).abs().max())
+        if not err <= 2e-5:
+            raise AssertionError(f"mc {what}: combined differs from the recomposition by {err}")
+    log(f"[mc] make_scene(0) traced at {FRAME_H}x{FRAME_W}: GT {MC_GT_SPP} spp in "
+        f"{res['gt_s']:.2f} s ({res['gt_s'] / MC_GT_SPP * 1e3:.3f} ms a sample; host clock around "
+        f"a synchronize; peak {res['gt_peak_gib']:.2f} GiB), noisy {MC_SPP} spp in "
+        f"{res['noisy_s']:.3f} s; combined == recompose and finite | {card['smi']}")
+    t0 = time.perf_counter()
+    res["check"] = _mc_card_against_cpu()
+    log(f"[mc] card against the port on the CPU at {MC_CHECK_H}x{MC_CHECK_W}, {MC_CHECK_SPP} spp "
+        f"({time.perf_counter() - t0:.1f} s): " + "; ".join(
+            f"scene {seed}: {c['flips']} flipped pixels (limit "
+            f"{int(MC_FLIP_SHARE * MC_CHECK_H * MC_CHECK_W)}, all at edges), RMS card-CPU / "
+            f"CPU-CPU " + ", ".join(f"{p} {r:.3f}" for p, r in c["rms_ratio"].items())
+            for seed, c in res["check"].items()) + f" (limit {MC_RMS_RATIO})")
+
+    t0 = time.perf_counter()
+    hold = holdouts.result()
+    dev = torch.device("cuda")
+    others = {"fourier": frame}
+    others.update({fam: {"noisy": n, "clean": {"combined": c}} for fam, (n, c, _) in hold.items()})
+    others = {fam: ({k: torch.as_tensor(v, device=dev) for k, v in f["noisy"].items()},
+                    torch.as_tensor(f["clean"]["combined"], device=dev))
+              for fam, f in others.items()}
+    others["mc"] = (noisy, gt["combined"])
+    log(f"[mc] holdout frames at 1080p (numpy, a worker process started with the script): "
+        + ", ".join(f"{fam} {t:.1f} s" for fam, (_, _, t) in hold.items())
+        + f"; waited {time.perf_counter() - t0:.1f} s here")
+    mc_frame = {"clean": gt, "noisy": noisy}
+    for preset, weights, k1, tol in (
+            ("kpn-hq", "kpn_hq_ema_f16.npz", 8, GAIN_TOL_DB),
+            ("flagship-mc", "flagship_mc_ema_f16.npz", 0, MC_FLAGSHIP_GAIN_TOL_DB)):
+        res[preset] = phase_preset(preset, weights, mc_frame, card, kernel_launches_per_frame=k1,
+                                   check_fp32=True, timed_frames=5, gain_tol=tol, cli=False,
+                                   label=f"mc {preset}", other_frames=others)
+    log("[mc] PSNR gain at 1080p (tonemapped, bf16): " + "; ".join(
+        f"{preset} " + ", ".join(f"{fam} {g:.4f} dB" for fam, g in res[preset]["other_gains_db"].items())
+        for preset in ("kpn-hq", "flagship-mc")))
+    del others, mc_frame, gt, noisy
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_device_batch(card: dict, train_res: dict) -> dict:
+    """training_batch on the card: ms a batch (CUDA events) and peak memory
+    for each family at the training recipe's batch and crop; then the
+    kpn-hq train step (phase 18's recipe) fed only by mixed-mc batches: ms a
+    step with the synthesis and for the step alone, K1 and d_w launches a
+    step, finite loss."""
+    from deepdenoiser_tpu_torch import config, transforms
+    from deepdenoiser_tpu_torch.data import synthetic_device
+    from deepdenoiser_tpu_torch.training import train as train_lib
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def make(family):
+        return synthetic_device.training_batch(gen, TRAIN_BATCH, TRAIN_CROP, "joint", family)
+
+    res = {"families": {}}
+    want = {"x": transforms.joint_input_channels(), "y": transforms.joint_output_channels()}
+    for family in synthetic_device.FAMILIES:
+        b = make(family)  # warm-up, checked
+        for k, c in want.items():
+            if (tuple(b[k].shape) != (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, c)
+                    or b[k].device.type != gen.device.type or not torch.isfinite(b[k]).all()):
+                raise AssertionError(f"training_batch {family}: {k} {tuple(b[k].shape)} on "
+                                     f"{b[k].device}, finite {bool(torch.isfinite(b[k]).all())}")
+        del b
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n = 3 if "mc" in family else 10
+        ms = cuda_ms(lambda: make(family), iters=n, warmup=0)
+        res["families"][family] = {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                                   "batches": n}
+    log(f"[device-batch] training_batch({TRAIN_BATCH}, {TRAIN_CROP}, joint) on the card, ms a "
+        f"batch (CUDA events) and peak: " + ", ".join(
+            f"{f} {r['ms']:.2f} ms {r['peak_gib']:.3f} GiB (of {r['batches']})"
+            for f, r in res["families"].items()) + f" | {card['smi']}")
+
+    cfg = _train_config()
+    mcfg = config.validate_channels(cfg).model
+    state = train_lib.create_state(mcfg, cfg.train, seed=0)
+    step = train_lib.make_train_step(mcfg, cfg.train)
+    for _ in range(2):  # warm-up
+        state, mets = step(state, make("mixed-mc"))
+    float(mets["loss"])
+    reset_launches()
+    losses, times = [], []
+    for _ in range(DEVICE_BATCH_STEPS):
+        t0 = time.perf_counter()
+        state, mets = step(state, make("mixed-mc"))
+        losses.append(float(mets["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    expect_launches("device-batch train steps", launches, DEVICE_BATCH_STEPS, kpn_apply=8,
+                    kpn_apply_bwd_weights=8)
+    step_losses, step_times = _steps_timed(state, step, make("mixed-mc"), DEVICE_BATCH_STEPS)
+    if not all(math.isfinite(v) for v in losses + step_losses):
+        raise AssertionError(f"device-batch train: non-finite loss {losses} {step_losses}")
+    res.update(ms=statistics.median(times), step_ms=statistics.median(step_times),
+               launches={k: v / DEVICE_BATCH_STEPS for k, v in launches.items()}, losses=losses)
+    log(f"[device-batch] kpn-hq make_train_step fed by training_batch(mixed-mc) on the card, "
+        f"batch {TRAIN_BATCH}, crop {TRAIN_CROP}, lr {cfg.train.learning_rate} with "
+        f"{cfg.train.warmup_steps} warm-up steps: synthesis + step {res['ms']:.2f} ms, the step "
+        f"alone {res['step_ms']:.2f} ms (medians of {DEVICE_BATCH_STEPS}, host clock, each step "
+        f"closed by reading its loss); phase 18: `train` {train_res['cli_ms']:.2f} ms, "
+        f"make_train_step on a fixed batch {train_res['kpn-hq bfloat16']['ms']:.2f} ms; launches "
+        f"a step: kpn_apply {res['launches']['kpn_apply']:g}, bwd_weights "
+        f"{res['launches']['kpn_apply_bwd_weights']:g}; loss " + " ".join(f"{v:.4f}" for v in losses)
+        + f" | {card['smi']}")
+    del state, step
+    torch.cuda.empty_cache()
+    return res
+
+
 def _kernel_row(name: str, source: str, replaces: str, launches: int, t: dict,
                 on_path: bool = True, **extra) -> dict:
     """One entry of the kernels line; `on_path`: some entry point's path
@@ -1952,16 +2222,10 @@ def _kernel_row(name: str, source: str, replaces: str, launches: int, t: dict,
     }
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="smoke run of the PyTorch port on one CUDA card")
-    ap.add_argument("--profile", action="store_true",
-                    help="also print each preset's device time by kernel (torch.profiler)")
-    args = ap.parse_args(argv)
-    t_start = time.perf_counter()
-    card = phase_card()
-    phase_build()
-    kern = phase_kernels(card)
-    ingest = phase_ingest_kernels(card)
+def _run_phases(phase, card: dict, holdouts, profile: bool) -> tuple:
+    phase("build", phase_build)
+    kern = phase("kernels", phase_kernels, card)
+    ingest = phase("ingest-kernels", phase_ingest_kernels, card)
 
     from deepdenoiser_tpu_torch.data import exr
 
@@ -1972,29 +2236,60 @@ def main(argv=None) -> int:
     log(f"[frame] Fourier family 1080p spp4 written to {frame_dir.relative_to(ROOT)} "
         f"in {time.perf_counter() - t0:.1f} s")
     frame = {"clean": clean, "noisy": noisy, "dir": frame_dir}
-    kpn_res = phase_preset("kpn-hq", "kpn_hq_ema_f16.npz", frame, card,
-                           kernel_launches_per_frame=8, check_fp32=True, profile=args.profile)
-    phase_preset("flagship-hq", "flagship_hq_ema_f16.npz", frame, card,
-                 kernel_launches_per_frame=0, check_fp32=False, profile=args.profile)
-    max_res = phase_flagship_max(frame, card, profile=args.profile)
-    aux_counts = phase_aux_subsets(frame, card)
-    per_pass_counts = phase_per_pass_encode(frame, card)
-    phase_rgb(frame, card)
-    phase_preset("flagship", "flagship_ema_f16.npz", frame, card, kernel_launches_per_frame=0,
-                 check_fp32=True, profile=args.profile, timed_frames=5)
-    uhd_res = phase_tiled_4k(frame, card, profile=args.profile)
-    feather_res = phase_feather(frame, card)
+    kpn_res = phase("kpn-hq", phase_preset, "kpn-hq", "kpn_hq_ema_f16.npz", frame, card,
+                    kernel_launches_per_frame=8, check_fp32=True, profile=profile)
+    phase("flagship-hq", phase_preset, "flagship-hq", "flagship_hq_ema_f16.npz", frame, card,
+          kernel_launches_per_frame=0, check_fp32=False, profile=profile)
+    max_res = phase("flagship-max", phase_flagship_max, frame, card, profile=profile)
+    aux_counts = phase("aux-subsets", phase_aux_subsets, frame, card)
+    per_pass_counts = phase("per-pass", phase_per_pass_encode, frame, card)
+    phase("rgb", phase_rgb, frame, card)
+    phase("flagship", phase_preset, "flagship", "flagship_ema_f16.npz", frame, card,
+          kernel_launches_per_frame=0, check_fp32=True, profile=profile, timed_frames=5)
+    uhd_res = phase("tiled-4k", phase_tiled_4k, frame, card, profile=profile)
+    feather_res = phase("feather", phase_feather, frame, card)
     for preset in ("tiramisu-lt1", "tiramisu-fast", "tiramisu"):
-        phase_preset(preset, preset.replace("-", "_") + "_ema_f16.npz", frame, card,
-                     kernel_launches_per_frame=0, check_fp32=True,
-                     profile=args.profile and preset == "tiramisu-lt1", timed_frames=5,
-                     gain_tol=TIRAMISU_GAIN_TOL_DB)
-    phase_multiscale(frame, card)
-    phase_flags(frame, card)
-    phase_sequence(frame, card)
-    train_kern = phase_train_kernels(card)
-    phase_train_parity(card)
-    train_res = phase_train(frame, card, profile=args.profile)
+        phase(preset, phase_preset, preset, preset.replace("-", "_") + "_ema_f16.npz", frame,
+              card, kernel_launches_per_frame=0, check_fp32=True,
+              profile=profile and preset == "tiramisu-lt1", timed_frames=5,
+              gain_tol=TIRAMISU_GAIN_TOL_DB)
+    phase("multiscale", phase_multiscale, frame, card)
+    phase("flags", phase_flags, frame, card)
+    phase("sequence", phase_sequence, frame, card)
+    train_kern = phase("train-kernels", phase_train_kernels, card)
+    phase("train-parity", phase_train_parity, card)
+    train_res = phase("train", phase_train, frame, card, profile=profile)
+    mc_res = phase("mc", phase_mc, frame, card, holdouts)
+    batch_res = phase("device-batch", phase_device_batch, card, train_res)
+    return (kern, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res, feather_res,
+            train_kern, train_res, mc_res, batch_res)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="smoke run of the PyTorch port on one CUDA card")
+    ap.add_argument("--profile", action="store_true",
+                    help="also print each preset's device time by kernel (torch.profiler)")
+    args = ap.parse_args(argv)
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def phase(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        seconds[name] = time.perf_counter() - t0
+        log(f"[time] {name}: {seconds[name]:.1f} s")
+        return out
+
+    card = phase("card", phase_card)
+    # bench.py's two holdout families at 1080p are numpy work of a minute:
+    # one worker process makes them beside the card's phases, for phase mc
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        holdouts = pool.submit(_holdout_frames, FRAME_H, FRAME_W)
+        res = _run_phases(phase, card, holdouts, args.profile)
+    kern, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res, feather_res, \
+        train_kern, train_res, mc_res, batch_res = res
+    log("[time] " + ", ".join(f"{k} {v:.0f}" for k, v in seconds.items()) + " s")
 
     group, tile, train_fwd = kern["group"], kern["tile"], kern["train"]
     kernels = [_kernel_row(
@@ -2012,6 +2307,15 @@ def main(argv=None) -> int:
         launches_train_eval=train_res["k1_eval_launches"],
         train_shape=train_fwd["shape"], train_ms=train_fwd["ms"],
         train_plain_ms=train_fwd["plain_ms"], train_bound_ms=train_fwd["bound_ms"],
+        launches_by_path={
+            "kpn-hq cli frame": kpn_res["cli_launches"],
+            "flagship-max cli frame": max_res["cli_launches"]["kpn_apply"],
+            "kpn-hq tiled 4K frame": uhd_res["launches"],
+            "flagship-max feathered frame": feather_res["launches"]["kpn_apply"],
+            "kpn-hq train step": train_res["k1_step_launches"] / TRAIN_STEPS,
+            "kpn-hq traced mc frame": mc_res["kpn-hq"]["launches_per_frame"],
+            "kpn-hq train step on device batches": batch_res["launches"]["kpn_apply"],
+        },
     )]
     for entry, fn in BWD_ENTRIES.items():
         t = train_kern[entry]
@@ -2026,6 +2330,10 @@ def main(argv=None) -> int:
             train_res["launches"][f"kpn_apply_{entry}"], t, on_path=entry != "bwd_noisy",
             k=t["k"], entry_point=fn, slot=t["slot"], stack=t["stack"],
             launches_per_train_step=train_res["launches"][f"kpn_apply_{entry}"] / TRAIN_STEPS,
+            launches_by_path={
+                "kpn-hq train step": train_res["launches"][f"kpn_apply_{entry}"] / TRAIN_STEPS,
+                "kpn-hq train step on device batches": batch_res["launches"][f"kpn_apply_{entry}"],
+            },
             moved32=t["moved32"], moved64=t["moved64"], moved32_bound_ms=t["moved32_bound_ms"],
             moved64_bound_ms=t["moved64_bound_ms"], buffer_sets=t["buffer_sets"],
             resident_blocks_per_sm=t["resident_blocks_per_sm"],
@@ -2067,6 +2375,13 @@ def main(argv=None) -> int:
                                  train_res["kpn-hq bfloat16"]["ms"],
                                  train_res["flagship-hq bfloat16"]["ms"],
                                  train_res["flagship-hq float32"]["ms"], train_res["loader_ms"]))
+    log("[summary] mc: GT {} spp at 1080p {:.2f} s; gain on the traced frame kpn-hq {:.4f} dB "
+        "(fp32 {:.4f}), flagship-mc {:.4f} dB (fp32 {:.4f}); device batches: ".format(
+            MC_GT_SPP, mc_res["gt_s"], mc_res["kpn-hq"]["gain_db"], mc_res["kpn-hq"]["fp32_gain_db"],
+            mc_res["flagship-mc"]["gain_db"], mc_res["flagship-mc"]["fp32_gain_db"])
+        + ", ".join(f"{f} {r['ms']:.2f}" for f, r in batch_res["families"].items())
+        + " ms a batch; train step on mixed-mc batches {:.2f} ms (step alone {:.2f})".format(
+            batch_res["ms"], batch_res["step_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],

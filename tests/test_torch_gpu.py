@@ -17,10 +17,13 @@ import pytest
 import torch
 
 from deepdenoiser_tpu_torch import config, transforms, weights_io
-from deepdenoiser_tpu_torch.data import synthetic
+from deepdenoiser_tpu_torch.data import mc_tracer, synthetic, synthetic_device
+from deepdenoiser_tpu_torch.data.draws import seeded
 from deepdenoiser_tpu_torch.inference import pipeline
 from deepdenoiser_tpu_torch.models import kpn
 from deepdenoiser_tpu_torch.ops import fused_ingest, kpn_apply
+
+import torch_flips  # noqa: E402  (tests/, on the path of every test module)
 
 REPO = Path(__file__).resolve().parents[1]
 pytestmark = pytest.mark.gpu
@@ -485,3 +488,32 @@ def test_kpn_backward_kernels_fill_the_card_at_the_training_batch(cuda):
     tiles = 16 * (96 // 8) * (96 // 32)
     for entry in kpn_apply.BWD_ENTRIES:
         assert kpn_apply.resident_blocks(entry, 5, 3) * sms >= tiles, entry
+
+
+@pytest.mark.parametrize("seed", [0, 4, 5, 11])
+def test_tracer_on_the_card_matches_the_cpu_tracer_under_the_flip_bar(cuda, seed):
+    """The deterministic buffers of one scene traced on the card and on the
+    CPU agree but for pixels that flip at a silhouette or checker edge."""
+    frames = [{k: v.cpu().numpy() for k, v in
+               mc_tracer.render(mc_tracer.make_scene(seed, device=dev), 48, 64, 1,
+                                seeded(0, dev)).items()}
+              for dev in (cuda, "cpu")]
+    torch_flips.assert_flips_only(*frames)
+
+
+@pytest.mark.parametrize("family", synthetic_device.FAMILIES)
+def test_training_batch_stays_on_the_card_without_a_host_sync(cuda, monkeypatch, family):
+    """Every tensor is made on the card, finite, and no operation waits for
+    the card (torch's sync debug mode raises on one)."""
+    monkeypatch.setattr(synthetic_device, "MC_TRAIN_GT_SPP", 16)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batch = synthetic_device.training_batch(gen, 6, 32, "joint", family)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert batch["x"].shape == (6, 32, 32, transforms.joint_input_channels())
+    assert batch["y"].shape == (6, 32, 32, transforms.joint_output_channels())
+    for v in batch.values():
+        assert v.device.type == "cuda" and bool(torch.isfinite(v).all())

@@ -57,7 +57,9 @@ def test_importing_every_port_module_leaves_jax_out():
     assert "deepdenoiser_tpu_torch.ops.kpn_apply" in mods
     assert "deepdenoiser_tpu_torch.ops.fused_ingest" in mods
     for new in ("models.tiramisu", "models.multiscale", "inference.sequence", "inference.tiled",
-                "data.prepare", "ops.metrics", "cli"):
+                "data.prepare", "ops.metrics", "cli", "data.mc_tracer", "data.synthetic_device",
+                "data.synthetic_holdout", "data.synthetic_spheres", "data.synthetic_boxes",
+                "data.draws"):
         assert f"deepdenoiser_tpu_torch.{new}" in mods
     code = (
         "import importlib, json, sys\n"
