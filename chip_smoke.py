@@ -98,7 +98,23 @@ non-zero:
                  (phase 18's recipe) fed only by mixed-mc batches: ms a step
                  with the synthesis and the step alone, beside phase 18's; 8
                  K1 and 8 d_w launches a step; finite loss
-  21. one JSON line {"kernels": [...]}; every phase's seconds on [time] lines
+  21. multi-device  every path on the one card: kpn-hq at 1080p in 2 and 4
+                 bands (spatial_shard, mesh ["cuda:0"] * n): 8 K1 launches a
+                 band, fp32 (TF32 off) banded == the whole frame with the
+                 certified halo within 1e-4 x max|ref| per pass, bf16 gain
+                 within 0.05 dB of fp32, ms per frame and peak beside the
+                 whole frame's; flagship-max in 4 bands with the fused ingest
+                 (1 group-encode and 8 K1 launches a frame, fp32 == whole);
+                 4 noisy frames through make_batch_frame_denoiser on
+                 ["cuda:0"] * 4 (32 K1 launches, each frame == its own
+                 denoise); make_train_step on 2 gloo ranks sharing the card
+                 (spawned; fp32, 3 steps == the one-rank global step: loss and
+                 grad_norm rel 1e-5, parameters 2e-6; 8 K1 and 8 d_w launches
+                 a rank and step; the gradient all-reduce timed), `train`
+                 under torch.distributed.run --nproc_per_node 2 for 10 steps
+                 of phase 18's recipe, and `denoise --checkpoint` of that run
+                 in one process
+  22. one JSON line {"kernels": [...]}; every phase's seconds on [time] lines
   (with --profile, the frame phases and the train steps also print device
   time by kernel and the device's busy share, from torch.profiler)
   then the card's name and power limit as nvidia-smi prints them, and last
@@ -222,6 +238,19 @@ def full_fp32():
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms only inside the block: two runs of
+    the same step then agree bit for bit (by default the weight gradient of
+    a conv may come from an algorithm whose summation order varies)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
 
 
 def reset_launches() -> None:
@@ -2208,6 +2237,393 @@ def phase_device_batch(card: dict, train_res: dict) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# multi-device: band-parallel frames, frame batches and data-parallel
+# training, every path on the one card
+# --------------------------------------------------------------------------
+
+MD_BANDS = (2, 4)  # spatial meshes ["cuda:0"] * n for the banded kpn-hq frame
+MD_GROUP_BANDS = 4  # the banded flagship-max group frame
+MD_BATCH_FRAMES = 4  # frames through make_batch_frame_denoiser on a 4-way data mesh
+MD_TIMED_FRAMES = 5
+MD_TOL = 1e-4  # x max|ref| per pass, fp32 (TF32 off): banded == the certified whole frame
+DP_RANKS, DP_STEPS, DP_CLI_STEPS = 2, 3, 10
+DP_REL = 1e-5  # loss and grad_norm: N ranks against the one-rank global step
+DP_ABS = 2e-6  # parameters: the rank invariant of tests/test_train.py:31-50, and 1e-3 lr,
+# where the gradient is resolved (|g| > 1e-5 of its norm at every step, phase 17's
+# criterion); where it is at rounding level Adam's m/sqrt(v) is decided by rounding
+# (ROADMAP.md §3 (g)), and such elements are held to 2 x the summed learning rate, as in
+# phase 17. Both sides run cuDNN's deterministic algorithms: with the default ones the
+# one-rank step itself differs from run to run, and so did the gap (1.25e-7 to 2.70e-7)
+DP_ALLREDUCE_REPS = 10
+DP_TIMEOUT_S = 300  # the spawned ranks, and the launcher's `train`, are stopped after this
+
+
+def _md_mesh(n: int, axis: str):
+    from deepdenoiser_tpu_torch.parallel import mesh
+
+    return mesh.make_mesh(n, axis, devices=["cuda:0"] * n)
+
+
+def _timed_frames(den, frame_dev, n: int) -> tuple:
+    """(median ms, min, max, peak GiB, launches) over n frames after two
+    warm-up frames, launch counts set to 0 just before."""
+    for _ in range(2):
+        den(frame_dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = time_frames(lambda: den(frame_dev), n)
+    return (statistics.median(times), min(times), max(times),
+            torch.cuda.max_memory_allocated() / 2**30, read_launches())
+
+
+def _dp_rank(rank: int, world: int, init_method: str, out_dir: str, params: dict, batch: dict,
+             steps: int) -> None:
+    """One data-parallel rank on cuda:0 (spawned): `steps` kpn-hq train
+    steps in fp32 (TF32 off, deterministic convs) on its share of the global
+    batch; the launches of K1 and d_w a step; the time of the gradient
+    all-reduce alone."""
+    from deepdenoiser_tpu_torch import config, weights_io
+    from deepdenoiser_tpu_torch.parallel import dist
+    from deepdenoiser_tpu_torch.training import train as train_lib
+
+    group = dist.init(rank, world, init_method, device="cuda")
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True  # as the one-rank reference runs
+        cfg = _train_config()
+        mcfg = dataclasses.replace(config.validate_channels(cfg).model, compute_dtype="float32")
+        state = train_lib.create_state(mcfg, cfg.train, params=weights_io.unflatten(params))
+        step = train_lib.make_train_step(mcfg, cfg.train, group)
+        per = TRAIN_BATCH // world
+        mine = {k: torch.from_numpy(v[rank * per : (rank + 1) * per]).to(group.device)
+                for k, v in batch.items()}
+        mets, launches = [], []
+        for _ in range(steps):
+            reset_launches()
+            state, out = step(state, mine)
+            mets.append({k: float(v) for k, v in out.items()})
+            launches.append(read_launches())
+        flat = torch.cat([p.detach().reshape(-1) for p in state.model.parameters()])
+        times = []
+        for _ in range(DP_ALLREDUCE_REPS + 2):
+            buf = torch.ones_like(flat)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            group.all_reduce_mean_(buf)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.save({"mets": mets, "launches": launches, "params": flat.cpu(),
+                    "backend": group.backend, "allreduce_ms": times[2:],
+                    "allreduce_bytes": flat.numel() * 4},
+                   Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.shutdown(group)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_multi_device(frame: dict, card: dict) -> dict:
+    """The multi-device paths, each on the one card: band-parallel kpn-hq
+    frames over ["cuda:0"] * n (n = 2, 4) against the certified whole
+    frame; the banded flagship-max group frame; a frame batch over a 4-way
+    data mesh; data-parallel training on 2 gloo ranks (make_train_step
+    against the one-rank global step, then `train` under
+    torch.distributed.run and `denoise --checkpoint` in one process)."""
+    import shutil
+
+    import numpy as np
+
+    from deepdenoiser_tpu_torch import config, weights_io
+    from deepdenoiser_tpu_torch.data import exr, loader, synthetic
+    from deepdenoiser_tpu_torch.inference import pipeline, sequence
+    from deepdenoiser_tpu_torch.parallel import halo
+    from deepdenoiser_tpu_torch.training import train as train_lib
+
+    res = {"bands": {}}
+    clean_c, noisy_c = _frame_on_card(frame)
+    frame_dev = _fp32_frame(frame)
+
+    # 1. band-parallel kpn-hq frames
+    cfg = config.validate_channels(config.PRESETS["kpn-hq"])
+    params = weights_io.load_release_params(ROOT / "weights" / "kpn_hq_ema_f16.npz")
+    spatial = dataclasses.replace(cfg.infer, spatial_shard=True)
+    spatial32 = dataclasses.replace(spatial, compute_dtype="float32")
+    whole, wgrid = pipeline.make_joint_frame_denoiser(cfg.model, spatial, FRAME_H, FRAME_W, params)
+    ms, lo, hi, peak, launches = _timed_frames(whole, frame_dev, MD_TIMED_FRAMES)
+    expect_launches("kpn-hq whole frame, certified halo", launches, MD_TIMED_FRAMES, kpn_apply=8)
+    whole_mpx = wgrid.net_h * wgrid.net_w / 1e6
+    res["whole"] = {"ms": ms, "peak_gib": peak, "mpx": whole_mpx,
+                    "gain_db": _gain_db(whole(frame_dev)["combined"], noisy_c, clean_c)}
+    del whole
+    with full_fp32():
+        ref32 = pipeline.make_joint_frame_denoiser(cfg.model, spatial32, FRAME_H, FRAME_W,
+                                                   params)[0](frame_dev)
+    log(f"[multi-device] kpn-hq 1080p whole frame, certified halo {wgrid.halo}: network input "
+        f"{wgrid.net_h}x{wgrid.net_w} ({whole_mpx:.2f} Mpx), {ms:.2f} ms/frame median of "
+        f"{MD_TIMED_FRAMES} (min {lo:.2f}, max {hi:.2f}), peak {peak:.2f} GiB | {card['smi']}")
+    for n in MD_BANDS:
+        mesh = _md_mesh(n, "spatial")
+        grid, b = halo.plan_bands(FRAME_H, FRAME_W, n, wgrid.halo, 8)
+        shape = (1, b + 2 * grid.halo, grid.tile_w + 2 * grid.halo, cfg.model.in_channels)
+        mpx = n * shape[1] * shape[2] / 1e6
+        den, _ = pipeline.make_joint_frame_denoiser(cfg.model, spatial, FRAME_H, FRAME_W, params,
+                                                    mesh=mesh)
+        ms, lo, hi, peak, launches = _timed_frames(den, frame_dev, MD_TIMED_FRAMES)
+        expect_launches(f"kpn-hq {n} bands", launches, MD_TIMED_FRAMES, kpn_apply=8 * n)
+        out = den(frame_dev)
+        check_frame(f"kpn-hq {n} bands", out)
+        gain = _gain_db(out["combined"], noisy_c, clean_c)
+        del den, out
+        with full_fp32():
+            den32, _ = pipeline.make_joint_frame_denoiser(cfg.model, spatial32, FRAME_H, FRAME_W,
+                                                          params, mesh=mesh)
+            reset_launches()
+            out32 = den32(frame_dev)
+            torch.cuda.synchronize()
+            expect_launches(f"kpn-hq {n} bands fp32", read_launches(), kpn_apply=8 * n)
+        err = frames_agree(f"kpn-hq {n} bands fp32 vs the whole frame", out32, ref32, MD_TOL)
+        gain32 = _gain_db(out32["combined"], noisy_c, clean_c)
+        del den32, out32
+        torch.cuda.empty_cache()
+        if gain <= 0 or abs(gain - gain32) > GAIN_TOL_DB:
+            raise AssertionError(f"kpn-hq {n} bands: bf16 gain {gain:.4f} dB, fp32 {gain32:.4f}")
+        res["bands"][n] = {"ms": ms, "min": lo, "max": hi, "peak_gib": peak, "band": b,
+                           "hp": grid.halo, "band_input": shape, "mpx": mpx,
+                           "launches_per_frame": launches["kpn_apply"] / MD_TIMED_FRAMES,
+                           "fp32_err": err, "gain_db": gain, "fp32_gain_db": gain32}
+        log(f"[multi-device] kpn-hq 1080p in {n} bands on ['cuda:0']*{n}: band {b} rows, halo "
+            f"{grid.halo}, band input {shape} ({mpx:.2f} Mpx against {whole_mpx:.2f} whole), "
+            f"{ms:.2f} ms/frame median of {MD_TIMED_FRAMES} (min {lo:.2f}, max {hi:.2f}), peak "
+            f"{peak:.2f} GiB (whole frame {res['whole']['ms']:.2f} ms, "
+            f"{res['whole']['peak_gib']:.2f} GiB); fp32 banded vs whole max|d|/max|ref| "
+            f"{err:.2e} (limit {MD_TOL:g}); gain {gain:.4f} dB (fp32 {gain32:.4f}, whole "
+            f"{res['whole']['gain_db']:.4f}); kpn_apply {launches['kpn_apply'] / MD_TIMED_FRAMES:g} "
+            f"a frame | {card['smi']}")
+    del ref32
+
+    # 2. the banded flagship-max group frame, fused ingest
+    gcfg = config.validate_channels(config.PRESETS["flagship-max"])
+    gparams = weights_io.load_release_params(ROOT / "weights" / "kpn_ema_f16.npz")
+    gicfg = dataclasses.replace(gcfg.infer, use_pallas_ingest=True, spatial_shard=True)
+    n = MD_GROUP_BANDS
+    gden, _ = pipeline.make_group_frame_denoiser(gcfg.model, gicfg, FRAME_H, FRAME_W, gparams,
+                                                 mesh=_md_mesh(n, "spatial"))
+    ms, lo, hi, peak, launches = _timed_frames(gden, frame_dev, MD_TIMED_FRAMES)
+    expect_launches(f"flagship-max {n} bands", launches, MD_TIMED_FRAMES, kpn_apply=2 * n,
+                    group_encode=1)
+    gain = _gain_db(gden(frame_dev)["combined"], noisy_c, clean_c)
+    del gden
+    with full_fp32():
+        g32 = dataclasses.replace(gicfg, compute_dtype="float32")
+        outs = {}
+        for key, mesh in (("bands", _md_mesh(n, "spatial")), ("whole", None)):
+            den, _ = pipeline.make_group_frame_denoiser(gcfg.model, g32, FRAME_H, FRAME_W, gparams,
+                                                        mesh=mesh)
+            outs[key] = den(frame_dev)
+            del den
+        torch.cuda.synchronize()
+    gerr = frames_agree(f"flagship-max {n} bands fp32 vs the whole frame", outs["bands"],
+                        outs["whole"], MD_TOL)
+    del outs
+    torch.cuda.empty_cache()
+    if gain <= 0:
+        raise AssertionError(f"flagship-max {n} bands: no gain ({gain})")
+    res["group"] = {"bands": n, "ms": ms, "peak_gib": peak, "fp32_err": gerr, "gain_db": gain,
+                    "launches": {k: v / MD_TIMED_FRAMES for k, v in launches.items() if v}}
+    log(f"[multi-device] flagship-max 1080p group frame in {n} bands, fused ingest: "
+        f"{ms:.2f} ms/frame median of {MD_TIMED_FRAMES} (min {lo:.2f}, max {hi:.2f}), peak "
+        f"{peak:.2f} GiB; launches a frame {res['group']['launches']}; fp32 banded vs whole "
+        f"{gerr:.2e} (limit {MD_TOL:g}); gain {gain:.4f} dB | {card['smi']}")
+
+    # 3. a frame batch over a 4-way data mesh
+    clean = frame["clean"]
+    frames = [frame["noisy"]] + [synthetic.add_mc_noise(clean, spp=4, seed=2 + i)
+                                 for i in range(MD_BATCH_FRAMES - 1)]
+    batch = {k: torch.from_numpy(np.stack([np.asarray(f[k], np.float32) for f in frames])).to("cuda")
+             for k in frames[0]}
+    del frames
+    bden, _ = sequence.make_batch_frame_denoiser(cfg.model, cfg.infer, _md_mesh(4, "data"),
+                                                 FRAME_H, FRAME_W, params)
+    one, _ = pipeline.make_joint_frame_denoiser(cfg.model, cfg.infer, FRAME_H, FRAME_W, params)
+    bden(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = bden(batch)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    expect_launches("kpn-hq frame batch", launches, MD_BATCH_FRAMES, kpn_apply=8)
+    batch_peak = torch.cuda.max_memory_allocated() / 2**30
+    if tuple(got.shape) != (MD_BATCH_FRAMES, FRAME_H, FRAME_W, 3) or not torch.isfinite(got).all():
+        raise AssertionError(f"frame batch: {tuple(got.shape)}")
+    berr = 0.0
+    for i in range(MD_BATCH_FRAMES):
+        want = one({k: v[i] for k, v in batch.items()})["combined"]
+        berr = max(berr, frames_agree(f"frame batch, frame {i}", {"combined": got[i]},
+                                      {"combined": want}, MD_TOL))
+    del bden, one, got, batch
+    torch.cuda.empty_cache()
+    res["batch"] = {"frames": MD_BATCH_FRAMES, "ms_per_frame": batch_ms / MD_BATCH_FRAMES,
+                    "peak_gib": batch_peak, "err": berr, "launches": launches["kpn_apply"]}
+    log(f"[multi-device] kpn-hq batch of {MD_BATCH_FRAMES} 1080p frames on a 4-way data mesh "
+        f"['cuda:0']*4: {batch_ms:.2f} ms the batch, {batch_ms / MD_BATCH_FRAMES:.2f} ms/frame "
+        f"(host clock around a synchronize), peak {batch_peak:.2f} GiB; each frame against its "
+        f"own one-frame denoise {berr:.2e} (limit {MD_TOL:g}); kpn_apply {launches['kpn_apply']} "
+        f"| {card['smi']}")
+
+    # 4a. make_train_step on 2 gloo ranks sharing the card against the
+    # one-rank step on the global batch
+    tcfg = _train_config()
+    shards_dir = WORK / "train_shards"
+    raw = {k: v.to("cuda") for k, v in loader.make_dataset(shards_dir / "train", tcfg.data,
+                                                           training=False)[(0, 0)].items()}
+    enc = loader.make_batch_encoder(tcfg.data)(raw)
+    gbatch = {k: enc[k].cpu().numpy() for k in ("x", "y")}
+    mcfg = dataclasses.replace(config.validate_channels(tcfg).model, compute_dtype="float32")
+    start = train_lib.create_state(mcfg, tcfg.train, seed=0)
+    flat_params = weights_io.flatten(weights_io.params_from_state_dict(
+        {k: v.cpu() for k, v in start.model.state_dict().items()}))
+    out_dir = WORK / "dp_ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(
+        _dp_rank, args=(DP_RANKS, f"file://{out_dir / 'rendezvous'}", str(out_dir), flat_params,
+                        gbatch, DP_STEPS),
+        nprocs=DP_RANKS, join=False, start_method="spawn")
+    while not ctx.join(timeout=1.0):  # raises as soon as a rank fails
+        if time.perf_counter() - t0 > DP_TIMEOUT_S:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"DP ranks still running after {DP_TIMEOUT_S} s")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
+    for r in ranks:
+        for lc in r["launches"]:
+            expect_launches("DP rank train step", lc, kpn_apply=8, kpn_apply_bwd_weights=8)
+    if not torch.equal(ranks[0]["params"], ranks[1]["params"]) or ranks[0]["mets"] != ranks[1]["mets"]:
+        raise AssertionError("DP ranks hold different parameters or metrics")
+    step = train_lib.make_train_step(mcfg, tcfg.train)
+    tb = {k: torch.from_numpy(v).to("cuda") for k, v in gbatch.items()}
+    # the same global batch with its halves swapped: the one-rank step in
+    # another summation order, the scale of what rounding alone moves
+    swapped = {k: torch.cat([v[TRAIN_BATCH // 2:], v[:TRAIN_BATCH // 2]]) for k, v in tb.items()}
+    control = train_lib.create_state(mcfg, tcfg.train, params=weights_io.unflatten(flat_params))
+    resolved = None
+    with full_fp32(), deterministic_convs():
+        for got in ranks[0]["mets"]:
+            start, want = step(start, tb)
+            for k in ("loss", "grad_norm"):
+                if not abs(got[k] - float(want[k])) <= DP_REL * abs(float(want[k])):
+                    raise AssertionError(f"DP step {k}: {got[k]} vs one rank {float(want[k])}")
+            g = torch.cat([p.grad.reshape(-1) for p in start.model.parameters()])
+            big = (g.abs() > 1e-5 * g.norm()).cpu()
+            resolved = big if resolved is None else resolved & big
+            control, _ = step(control, swapped)
+    one_flat = torch.cat([p.detach().reshape(-1) for p in start.model.parameters()]).cpu()
+    swap_flat = torch.cat([p.detach().reshape(-1) for p in control.model.parameters()]).cpu()
+    swap_resolved = float((swap_flat - one_flat).abs()[resolved].max())
+    dp_gap = (ranks[0]["params"] - one_flat).abs()
+    lr = tcfg.train.learning_rate
+    lr_sum = sum(train_lib.learning_rate(tcfg.train, s) for s in range(DP_STEPS))
+    over = int((dp_gap > 1e-3 * lr).sum())
+    gap_resolved = float(dp_gap[resolved].max())
+    if gap_resolved > min(DP_ABS, 1e-3 * lr) or float(dp_gap.max()) > 2 * lr_sum:
+        raise AssertionError(f"DP parameters: max|d| {gap_resolved:.3e} where the gradient is "
+                             f"resolved (limit {min(DP_ABS, 1e-3 * lr):.3e}), "
+                             f"{float(dp_gap.max()):.3e} over all (limit {2 * lr_sum:.3e})")
+    del start, control, step, tb, swapped, enc, raw
+    torch.cuda.empty_cache()
+    ar = ranks[0]["allreduce_ms"]
+    res["dp_step"] = {"ranks": DP_RANKS, "backend": ranks[0]["backend"],
+                      "max_param_gap": float(dp_gap.max()), "over_1e-3_lr": over,
+                      "max_param_gap_resolved": gap_resolved, "resolved": int(resolved.sum()),
+                      "swapped_halves_gap_resolved": swap_resolved,
+                      "allreduce_ms": statistics.median(ar), "allreduce_mb": ranks[0]["allreduce_bytes"] / 1e6,
+                      "launches_per_step": ranks[0]["launches"][0], "spawn_s": spawn_s}
+    log(f"[multi-device] make_train_step, kpn-hq, batch {TRAIN_BATCH} ({TRAIN_BATCH // DP_RANKS} a rank), crop "
+        f"{TRAIN_CROP}, fp32 (TF32 off, deterministic convs), {DP_RANKS} ranks on cuda:0 over "
+        f"{ranks[0]['backend']}, "
+        f"{DP_STEPS} steps: loss and grad_norm within rel {DP_REL:g} of the one-rank global step, "
+        f"parameters max|d| {gap_resolved:.3e} over the {int(resolved.sum())} of "
+        f"{one_flat.numel()} whose gradient is resolved (limit {min(DP_ABS, 1e-3 * lr):.3e}; "
+        f"the one-rank step on the batch with its halves swapped {swap_resolved:.3e}), "
+        f"{float(dp_gap.max()):.3e} "
+        f"over all ({float(dp_gap.max()) / lr:.2e} lr, limit {2 * lr_sum / lr:g} lr; {over} "
+        f"over 1e-3 lr); each rank a step: kpn_apply 8, "
+        f"bwd_weights 8; all-reduce of the {ranks[0]['allreduce_bytes'] / 1e6:.1f} MB of fp32 "
+        f"gradients {res['dp_step']['allreduce_ms']:.2f} ms median of {len(ar)} (host clock "
+        f"around a synchronize; min {min(ar):.2f}, max {max(ar):.2f}); spawn and run "
+        f"{spawn_s:.1f} s | {card['smi']}")
+    del ranks
+
+    # 4b. `train` under torch.distributed.run, 2 ranks, phase 18's recipe
+    workdir = WORK / "dp_run"
+    shutil.rmtree(workdir, ignore_errors=True)
+    argv = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node",
+            str(DP_RANKS), "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
+            "-m", "deepdenoiser_tpu_torch.cli", "train", "--config", str(WORK / "train.json"),
+            "--workdir", str(workdir), "--shards", str(shards_dir), "--steps", str(DP_CLI_STEPS)]
+    t0 = time.perf_counter()
+    # its own session, so a timeout stops the launcher and its ranks together
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=DP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise AssertionError(f"torch.distributed.run train still running after {DP_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    (WORK / "dp_train.log").write_text(stdout + stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"torch.distributed.run train: rc {proc.returncode}\n"
+                             + (stdout + stderr)[-3000:])
+    dist_line = next((ln for ln in stdout.splitlines() if ln.startswith("[dist]")), None)
+    recs = _metrics(workdir / "metrics_train.jsonl")
+    ckpts = sorted(int(p.name) for p in (workdir / "checkpoints").iterdir() if p.name.isdigit())
+    if (dist_line is None or [r["step"] for r in recs] != list(range(1, DP_CLI_STEPS + 1))
+            or ckpts != [DP_CLI_STEPS] or not all(math.isfinite(r["loss"]) for r in recs)):
+        raise AssertionError(f"DP train: {dist_line}, steps {[r['step'] for r in recs]}, "
+                             f"checkpoints {ckpts}")
+    step_ms = [(b["time"] - a["time"]) * 1e3 for a, b in zip(recs[2:], recs[3:])]
+    res["dp_cli"] = {"ms": statistics.median(step_ms), "wall_s": wall, "dist": dist_line,
+                     "losses": [r["loss"] for r in recs]}
+    log(f"[multi-device] torch.distributed.run --nproc_per_node {DP_RANKS} ... train, kpn-hq "
+        f"batch {TRAIN_BATCH} ({TRAIN_BATCH // DP_RANKS} a rank), crop {TRAIN_CROP}, bf16, {DP_CLI_STEPS} steps in "
+        f"{wall:.1f} s (process start included): {res['dp_cli']['ms']:.2f} ms/step median over "
+        f"steps 4-{DP_CLI_STEPS} (host clock between rank 0's metric records); rank 0: "
+        f"{dist_line}; checkpoints {ckpts}; loss " + " ".join(f"{v:.4f}" for v in
+                                                         res["dp_cli"]["losses"])
+        + f" | {card['smi']}")
+
+    # 4c. the 2-rank checkpoint denoised by one process
+    reset_launches()
+    out_exr = WORK / "dp_denoised.exr"
+    if _cli_quiet(["denoise", "--config", str(workdir / "config.json"), "--checkpoint",
+                   str(workdir / "checkpoints"), "--ema", "--frame", str(frame["dir"]),
+                   "--out", str(out_exr)]) != 0:
+        raise AssertionError("cli denoise --checkpoint of the 2-rank run failed")
+    torch.cuda.synchronize()
+    expect_launches("denoise --checkpoint of the 2-rank run", read_launches(), kpn_apply=8)
+    out = torch.from_numpy(exr.read_exr(out_exr))
+    if tuple(out.shape) != (FRAME_H, FRAME_W, 3) or not torch.isfinite(out).all():
+        raise AssertionError(f"denoise of the 2-rank checkpoint: {tuple(out.shape)}")
+    log(f"[multi-device] denoise --checkpoint --ema of the {DP_RANKS}-rank run (step "
+        f"{DP_CLI_STEPS}) in one process: 1080p frame finite, 8 kpn_apply launches")
+    return res
+
+
 def _kernel_row(name: str, source: str, replaces: str, launches: int, t: dict,
                 on_path: bool = True, **extra) -> dict:
     """One entry of the kernels line; `on_path`: some entry point's path
@@ -2261,8 +2677,9 @@ def _run_phases(phase, card: dict, holdouts, profile: bool) -> tuple:
     train_res = phase("train", phase_train, frame, card, profile=profile)
     mc_res = phase("mc", phase_mc, frame, card, holdouts)
     batch_res = phase("device-batch", phase_device_batch, card, train_res)
+    md_res = phase("multi-device", phase_multi_device, frame, card)
     return (kern, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res, feather_res,
-            train_kern, train_res, mc_res, batch_res)
+            train_kern, train_res, mc_res, batch_res, md_res)
 
 
 def main(argv=None) -> int:
@@ -2288,7 +2705,7 @@ def main(argv=None) -> int:
         holdouts = pool.submit(_holdout_frames, FRAME_H, FRAME_W)
         res = _run_phases(phase, card, holdouts, args.profile)
     kern, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res, feather_res, \
-        train_kern, train_res, mc_res, batch_res = res
+        train_kern, train_res, mc_res, batch_res, md_res = res
     log("[time] " + ", ".join(f"{k} {v:.0f}" for k, v in seconds.items()) + " s")
 
     group, tile, train_fwd = kern["group"], kern["tile"], kern["train"]
@@ -2315,6 +2732,14 @@ def main(argv=None) -> int:
             "kpn-hq train step": train_res["k1_step_launches"] / TRAIN_STEPS,
             "kpn-hq traced mc frame": mc_res["kpn-hq"]["launches_per_frame"],
             "kpn-hq train step on device batches": batch_res["launches"]["kpn_apply"],
+            **{f"kpn-hq 1080p frame in {n} bands": b["launches_per_frame"]
+               for n, b in md_res["bands"].items()},
+            f"flagship-max group frame in {md_res['group']['bands']} bands":
+                md_res["group"]["launches"]["kpn_apply"],
+            f"kpn-hq batch of {md_res['batch']['frames']} frames on a 4-way data mesh":
+                md_res["batch"]["launches"],
+            f"kpn-hq train step, each of {DP_RANKS} data-parallel ranks":
+                md_res["dp_step"]["launches_per_step"]["kpn_apply"],
         },
     )]
     for entry, fn in BWD_ENTRIES.items():
@@ -2333,6 +2758,8 @@ def main(argv=None) -> int:
             launches_by_path={
                 "kpn-hq train step": train_res["launches"][f"kpn_apply_{entry}"] / TRAIN_STEPS,
                 "kpn-hq train step on device batches": batch_res["launches"][f"kpn_apply_{entry}"],
+                f"kpn-hq train step, each of {DP_RANKS} data-parallel ranks":
+                    md_res["dp_step"]["launches_per_step"][f"kpn_apply_{entry}"],
             },
             moved32=t["moved32"], moved64=t["moved64"], moved32_bound_ms=t["moved32_bound_ms"],
             moved64_bound_ms=t["moved64_bound_ms"], buffer_sets=t["buffer_sets"],
@@ -2361,7 +2788,9 @@ def main(argv=None) -> int:
         ms_by_aux=group_t["ms_by_aux"], tile_pixels=group_t["tile_pixels"],
         blocks=group_t["blocks"], buffer_sets=group_t["buffer_sets"],
         launches_by_path={"flagship-max": max_res["cli_launches"]["group_encode"], **aux_counts,
-                          "flagship-max feathered": feather_res["launches"]["group_encode"]},
+                          "flagship-max feathered": feather_res["launches"]["group_encode"],
+                          f"flagship-max in {md_res['group']['bands']} bands":
+                              md_res["group"]["launches"]["group_encode"]},
         bodies_by_path={path: [ingest[b]["replaces"] for b in bodies]
                         for path, bodies in GROUP_ENCODE_BODIES.items()},
     ))
@@ -2382,6 +2811,15 @@ def main(argv=None) -> int:
         + ", ".join(f"{f} {r['ms']:.2f}" for f, r in batch_res["families"].items())
         + " ms a batch; train step on mixed-mc batches {:.2f} ms (step alone {:.2f})".format(
             batch_res["ms"], batch_res["step_ms"]))
+    b2, b4 = (md_res["bands"][n] for n in MD_BANDS)
+    log("[summary] multi-device on one card: kpn-hq whole frame (certified halo) {:.2f} ms, "
+        "{:.2f} GiB; 2 bands {:.2f} ms, {:.2f} GiB; 4 bands {:.2f} ms, {:.2f} GiB; flagship-max "
+        "in 4 bands {:.2f} ms; frame batch {:.2f} ms/frame; DP step all-reduce {:.2f} ms over {}; "
+        "`train` on 2 ranks {:.2f} ms/step".format(
+            md_res["whole"]["ms"], md_res["whole"]["peak_gib"], b2["ms"], b2["peak_gib"], b4["ms"],
+            b4["peak_gib"], md_res["group"]["ms"], md_res["batch"]["ms_per_frame"],
+            md_res["dp_step"]["allreduce_ms"], md_res["dp_step"]["backend"],
+            md_res["dp_cli"]["ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],

@@ -4,6 +4,7 @@ denoise and eval, with the JAX package's flags.
     deepdenoiser-torch synth-data   --out renders/ [--frames 4 --size 128]
     deepdenoiser-torch prepare-data --renders renders/ --out shards/ [--config c.json]
     deepdenoiser-torch train        --config c.json --workdir runs/x --shards shards/ [--steps N]
+    python -m torch.distributed.run --nproc_per_node N -m deepdenoiser_tpu_torch.cli train ...
     deepdenoiser-torch denoise      --config runs/x/config.json --checkpoint runs/x/checkpoints \\
                                     --ema --frame frame_dir_or_multilayer.exr --out out.exr
     deepdenoiser-torch denoise      --preset kpn-hq --weights weights/kpn_hq_ema_f16.npz \\
@@ -19,8 +20,12 @@ section). `denoise` and `eval` take release weights (--weights, which win)
 or the newest training checkpoint under --checkpoint (the port's format,
 training/checkpoint.py; with none there they warn and run random
 weights, as the JAX package does). `eval` prints the sequence harness's
-JSON report. `train`, `denoise` and `eval` run on the card ("cuda")
-unless --device says otherwise, and fail when there is no card;
+JSON report. `train` under a launcher trains data-parallel on every rank
+(training/loop.fit); band-parallel frames are reached through a --config
+with infer.spatial_shard and the library's `mesh` argument, as in the JAX
+package, whose command line builds no mesh. `train`, `denoise` and `eval`
+run on the card ("cuda") unless --device says otherwise, and fail when
+there is no card;
 `synth-data` and `prepare-data` run on the host and take no --device.
 """
 
@@ -99,12 +104,19 @@ def cmd_synth_data(args) -> int:
 
 
 def cmd_train(args) -> int:
+    """One process trains alone; under `python -m torch.distributed.run
+    --nproc_per_node N` each is a data-parallel rank (parallel/dist.py)."""
+    from deepdenoiser_tpu_torch.parallel import dist
     from deepdenoiser_tpu_torch.training import loop
 
     cfg = _load_config(args)
     if args.steps:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, steps=args.steps))
-    loop.fit(cfg, args.workdir, shard_dir=args.shards, device=args.device)
+    group = dist.init_from_env(args.device)
+    try:
+        loop.fit(cfg, args.workdir, shard_dir=args.shards, device=args.device, group=group)
+    finally:
+        dist.shutdown(group)
     return 0
 
 

@@ -59,8 +59,8 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Optimizer, schedule and checkpointing (same names and defaults as
-    the JAX package's TrainConfig). `data_parallel` belongs to the
-    multi-device slice: one card trains unsharded."""
+    the JAX package's TrainConfig). `data_parallel`: train on every rank
+    of the launcher's process group (training/loop.fit)."""
 
     steps: int = 10_000
     learning_rate: float = 2e-4
@@ -88,8 +88,9 @@ class TrainConfig:
 @dataclasses.dataclass(frozen=True)
 class InferenceConfig:
     """Full-frame inference settings (same fields as the JAX package's).
-    spatial_shard belongs to the multi-device modes and raises in
-    inference/pipeline.py."""
+    spatial_shard: band-parallel frames over a mesh's 'spatial' axis
+    (inference/pipeline.py); without a mesh, the certified halo on one
+    device."""
 
     tile: int = 0  # core tile size; 0 = whole-frame
     tile_batch: int = 0  # tiles per network call; 0 = all tiles in one batch

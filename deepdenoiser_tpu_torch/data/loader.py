@@ -12,6 +12,15 @@ depend on how many threads made it, and an iterator resumed from
 one would. Grain's own shuffle order is not reproduced: the two packages
 visit the same examples per epoch in different orders.
 
+Two ways to split the data, for two kinds of parallel reader:
+  * host_count / host_index, the JAX package's per-host sharding: the
+    example index space is sliced [host_index::host_count] before the
+    shuffle, and each host makes batches of batch_size from its slice;
+  * share=(r, n), data-parallel ranks (training/loop.fit): every rank takes
+    the same epoch order and reads rows [r*B/n, (r+1)*B/n) of each global
+    batch of B, augmented as the one-rank run augments them, so n ranks
+    together see exactly the batches one rank would.
+
 Batches are built ahead in the main process by a pool of threads
 (`read_threads` of them, 0 = min(4, usable CPUs)): the shard reads, flips
 and stacks are numpy copies, which run without the GIL. The threads touch
@@ -24,11 +33,12 @@ tonemapped eval metrics.
 from __future__ import annotations
 
 import collections
+import math
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterator, Mapping, Sequence
+from typing import Dict, Iterator, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,24 +52,35 @@ Tensor = torch.Tensor
 
 class BatchSource:
     """Batch b of epoch e, `source[(e, b)]`: {key: (batch, ...) tensor} in
-    the stored dtypes. Safe to call from several threads."""
+    the stored dtypes. Safe to call from several threads. host_count,
+    host_index and share: see the module docstring; drop_remainder=False
+    keeps the last, short batch of an epoch."""
 
-    def __init__(self, shard_dir: str | Path, cfg: DataConfig, training: bool = True):
+    def __init__(self, shard_dir: str | Path, cfg: DataConfig, training: bool = True,
+                 host_count: int = 1, host_index: int = 0, drop_remainder: bool = True,
+                 share: Tuple[int, int] = (0, 1)):
         self.seed, self.batch_size = cfg.seed, cfg.batch_size
         self.training, self.augment = training, training and cfg.augment
+        rank, ranks = share
+        if not 0 <= rank < ranks or self.batch_size % ranks:
+            raise ValueError(f"share {share}: batch_size {self.batch_size} must divide into "
+                             f"{ranks} ranks")
+        self.share = share
         self._reader = shards.ShardReader(shard_dir)
         self._lock = threading.Lock()  # the reader's shard cache
-        self.n_examples = len(self._reader)
-        self.batches_per_epoch = self.n_examples // self.batch_size
+        self._index = np.arange(len(self._reader))[host_index::host_count]
+        self.n_examples = len(self._index)
+        per_epoch = self.n_examples / self.batch_size
+        self.batches_per_epoch = int(per_epoch) if drop_remainder else math.ceil(per_epoch)
         self._order = (None, None)  # (epoch, permutation)
 
     def order(self, epoch: int) -> np.ndarray:
-        """The example order of `epoch`."""
+        """The example order of `epoch` (indices into the shard store)."""
         if not self.training:
-            return np.arange(self.n_examples)
+            return self._index
         cached_epoch, perm = self._order
         if cached_epoch != epoch:
-            perm = np.random.default_rng((self.seed, epoch)).permutation(self.n_examples)
+            perm = self._index[np.random.default_rng((self.seed, epoch)).permutation(self.n_examples)]
             self._order = (epoch, perm)
         return perm
 
@@ -71,7 +92,10 @@ class BatchSource:
         return ex
 
     def batch(self, epoch: int, b: int) -> Dict[str, np.ndarray]:
-        idx = self.order(epoch)[b * self.batch_size : (b + 1) * self.batch_size]
+        rank, ranks = self.share
+        per = self.batch_size // ranks
+        start = b * self.batch_size + rank * per
+        idx = self.order(epoch)[start : min(start + per, (b + 1) * self.batch_size)]
         exs = [self.example(epoch, int(i)) for i in idx]
         return {k: np.stack([e[k] for e in exs]) for k in exs[0]}
 
@@ -134,10 +158,12 @@ class BatchIterator:
             self._ahead.clear()
 
 
-def make_dataset(shard_dir: str | Path, cfg: DataConfig, training: bool = True) -> BatchSource:
+def make_dataset(shard_dir: str | Path, cfg: DataConfig, training: bool = True,
+                 host_count: int = 1, host_index: int = 0, drop_remainder: bool = True,
+                 share: Tuple[int, int] = (0, 1)) -> BatchSource:
     """The batch source over a shard dir; iterating it gives epoch 0's
     batches in the calling thread (the eval path)."""
-    return BatchSource(shard_dir, cfg, training)
+    return BatchSource(shard_dir, cfg, training, host_count, host_index, drop_remainder, share)
 
 
 def iterate_epoch(source: BatchSource, epoch: int = 0) -> Iterator[Dict[str, Tensor]]:
@@ -146,9 +172,10 @@ def iterate_epoch(source: BatchSource, epoch: int = 0) -> Iterator[Dict[str, Ten
 
 
 def make_iterator(shard_dir: str | Path, cfg: DataConfig, training: bool = True,
-                  pin_memory: bool = False) -> BatchIterator:
+                  host_count: int = 1, host_index: int = 0, pin_memory: bool = False,
+                  share: Tuple[int, int] = (0, 1)) -> BatchIterator:
     """Infinite batch iterator over a shard dir, built ahead by threads."""
-    source = BatchSource(shard_dir, cfg, training)
+    source = BatchSource(shard_dir, cfg, training, host_count, host_index, share=share)
     if source.batches_per_epoch == 0:
         raise ValueError(f"{shard_dir}: {source.n_examples} examples make no batch of "
                          f"{cfg.batch_size}")

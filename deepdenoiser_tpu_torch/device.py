@@ -22,3 +22,13 @@ def resolve(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def for_rank(local_rank: int, device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device of a data-parallel rank: "cpu" when asked for, else the
+    card cuda:(local_rank % device_count), so ranks on a host spread over
+    its cards and share them when there are more ranks than cards."""
+    dev = resolve(device)
+    if dev.type == "cpu":
+        return dev
+    return torch.device("cuda", local_rank % torch.cuda.device_count())

@@ -14,7 +14,11 @@ The port of deepdenoiser_tpu/inference/pipeline.py:
 
 and, for joint and group, recompose Σ color⊙(direct+indirect) + emission +
 environment on the device. InferenceConfig chooses whole-frame (tile=0) or
-tiled execution (tile, tile_batch, stitch): inference/tiled.py.
+tiled execution (tile, tile_batch, stitch): inference/tiled.py. With
+spatial_shard and a mesh with a 'spatial' axis (parallel/mesh.py), joint
+and group frames run band-parallel over the mesh's devices with halo
+exchange (parallel/halo.py); spatial_shard without a mesh, and in rgb
+mode, runs on one device with the certified halo, as in the JAX package.
 
 PyTorch runs eagerly, so each factory builds the model once, loads the
 weights onto the device and returns a callable on a pass dict. The kernels
@@ -37,6 +41,7 @@ from deepdenoiser_tpu_torch.inference import tiled
 from deepdenoiser_tpu_torch.models import factory
 from deepdenoiser_tpu_torch.models.factory import ModelConfig
 from deepdenoiser_tpu_torch.ops import fused_ingest
+from deepdenoiser_tpu_torch.parallel import halo as halo_lib
 
 Tensor = torch.Tensor
 
@@ -75,15 +80,17 @@ def _with_passthrough(out: Dict[str, Tensor], pd: Mapping[str, Tensor],
 def _load_model(model_cfg: ModelConfig, infer_cfg: InferenceConfig, height: int, width: int,
                 params: Mapping[str, Any], device, mesh=None,
                 ) -> Tuple[factory.DenoiserModel, tiled.TileGrid, torch.device]:
-    """What every frame factory shares: refuse the multi-device modes,
-    resolve the device (the card, or raise), plan the plane, build the model
-    in the inference dtype and load `params` onto the device."""
-    if infer_cfg.spatial_shard or mesh is not None:
-        raise NotImplementedError(
-            "spatial sharding (band-parallel frames over a mesh) comes with the "
-            "multi-device slice of the port")
+    """What every frame factory shares: resolve the device (the card, or
+    raise; with a mesh, the first device of its 'spatial' axis), plan the
+    plane, build the model in the inference dtype and load `params` onto
+    the device."""
     if infer_cfg.stitch not in ("exact", "feather"):
         raise ValueError(f"stitch must be 'exact' or 'feather', got {infer_cfg.stitch!r}")
+    if mesh is not None and infer_cfg.spatial_shard:
+        first = mesh.axis_devices("spatial")[0]
+        if device is not None and device_lib.resolve(device) != first:
+            raise ValueError(f"device {device} is not the mesh's first device {first}")
+        device = first
     dev = device_lib.resolve(device)
     grid = plan_for(model_cfg, infer_cfg, height, width)
     model = factory.build_model(
@@ -95,7 +102,13 @@ def _load_model(model_cfg: ModelConfig, infer_cfg: InferenceConfig, height: int,
 
 
 def _frame_fn(model, grid: tiled.TileGrid, infer_cfg: InferenceConfig, out_channels: int,
-              batch_dims: int = 0):
+              batch_dims: int = 0, mesh=None, multiple: int = 1):
+    """The plane's network run: band-parallel over `mesh` with
+    spatial_shard, else the tile grid."""
+    if infer_cfg.spatial_shard and mesh is not None:
+        bands = halo_lib.make_spatial_apply_batched(
+            model, mesh, grid.height, grid.width, grid.halo, multiple)
+        return bands if batch_dims else lambda frame: bands(frame[None])[0]
     return tiled.make_tiled_apply(
         model, grid, out_channels, tile_batch=infer_cfg.tile_batch,
         batch_dims=batch_dims, feather=infer_cfg.stitch == "feather",
@@ -157,6 +170,7 @@ def make_joint_frame_denoiser(
     groups: Sequence[str] = passes.LIGHT_GROUPS,
     aux: Sequence[str] = passes.AUX_PASSES,
     device: Optional[Union[str, torch.device]] = None,
+    mesh=None,
     use_flags: bool = False,
     scales: Optional[Mapping[str, float]] = None,
 ):
@@ -166,11 +180,16 @@ def make_joint_frame_denoiser(
     load_release_params). Runs on "cuda" unless `device` says otherwise;
     raises when there is no card. Returns (denoiser, grid).
 
+    With infer_cfg.spatial_shard and a `mesh` (parallel/mesh.py) carrying a
+    'spatial' axis, the network runs band-parallel over the mesh's devices
+    (parallel/halo.py); the frame is encoded and decoded on its first one.
+
     use_flags: for flag-conditioned models (config.DataConfig.use_flags),
     see JointFrameDenoiser.
     """
-    model, grid, dev = _load_model(model_cfg, infer_cfg, height, width, params, device)
-    frame_fn = _frame_fn(model, grid, infer_cfg, transforms.joint_output_channels(tuple(groups)))
+    model, grid, dev = _load_model(model_cfg, infer_cfg, height, width, params, device, mesh)
+    frame_fn = _frame_fn(model, grid, infer_cfg, transforms.joint_output_channels(tuple(groups)),
+                         mesh=mesh, multiple=factory.spatial_multiple(model_cfg))
     return JointFrameDenoiser(model, grid, groups, aux, dev, scales, frame_fn, use_flags), grid
 
 
@@ -237,9 +256,15 @@ def make_group_frame_denoiser(
     plain encoder runs even if the flag is set, because the kernels bake
     the unscaled transforms. Runs on "cuda" unless `device` says otherwise;
     raises when there is no card. Returns (denoiser, grid).
+
+    With infer_cfg.spatial_shard and a `mesh` carrying a 'spatial' axis,
+    every group's rows run band-parallel over the mesh's devices, the
+    groups batched in each band; the encode runs once, before the bands,
+    on the mesh's first device.
     """
     model, grid, dev = _load_model(model_cfg, infer_cfg, height, width, params, device, mesh)
-    frame_fn = _frame_fn(model, grid, infer_cfg, transforms.GROUP_OUTPUT_CHANNELS, batch_dims=1)
+    frame_fn = _frame_fn(model, grid, infer_cfg, transforms.GROUP_OUTPUT_CHANNELS, batch_dims=1,
+                         mesh=mesh, multiple=factory.spatial_multiple(model_cfg))
     return GroupFrameDenoiser(model, grid, groups, aux, dev, scales,
                               fused=infer_cfg.use_pallas_ingest, frame_fn=frame_fn), grid
 
@@ -274,7 +299,9 @@ def make_rgb_frame_denoiser(
 ):
     """Combined-RGB mode at frame scale: noisy combined + albedo + aux ->
     denoised combined. Runs on "cuda" unless `device` says otherwise;
-    raises when there is no card. Returns (denoiser, grid)."""
+    raises when there is no card. Returns (denoiser, grid). As in the JAX
+    package there is no mesh: infer_cfg.spatial_shard only keeps the
+    certified halo of a whole frame."""
     model, grid, dev = _load_model(model_cfg, infer_cfg, height, width, params, device)
     return RgbFrameDenoiser(model, grid, aux, albedo_key, dev, scales,
                             _frame_fn(model, grid, infer_cfg, 3)), grid

@@ -1,7 +1,7 @@
 """Animation-sequence batch denoising with per-frame latency and PSNR/SSIM
 tracking.
 
-The port of deepdenoiser_tpu/inference/sequence.py for one device. One
+The port of deepdenoiser_tpu/inference/sequence.py. One
 denoiser per frame geometry is reused across all frames; the per-frame
 quality metrics are computed on the device and fetched as scalars, so full
 frames never cross to the host in the timed loop.
@@ -34,6 +34,7 @@ from deepdenoiser_tpu_torch.data.prepare import GT_DIR, _frame_dirs
 from deepdenoiser_tpu_torch.inference import pipeline
 from deepdenoiser_tpu_torch.models.factory import ModelConfig
 from deepdenoiser_tpu_torch.ops import metrics
+from deepdenoiser_tpu_torch.parallel import mesh as mesh_lib
 
 Tensor = torch.Tensor
 
@@ -88,6 +89,46 @@ def make_sequence_denoiser(
             metrics.psnr_per_image(pred, ref)[0],
             metrics.ssim(pred, ref)[0],
         )
+
+    return run, grid
+
+
+def make_batch_frame_denoiser(
+    model_cfg: ModelConfig,
+    infer_cfg: InferenceConfig,
+    mesh,
+    height: int,
+    width: int,
+    params: Mapping[str, Any],
+    mode: str = "joint",
+    scales=None,
+    groups=None,
+    use_flags: bool = False,
+):
+    """Frame-batch data parallelism: a batch of frames split over the
+    mesh's 'data' axis (parallel/mesh.py), each device running the
+    whole-frame pipeline on its chunk, with no exchange between devices.
+
+    Returns (fn(batch_pass_dict) -> (N, H, W, 3) combined on the axis's
+    first device, grid); every pass has a leading batch axis N divisible by
+    the axis size. One denoiser per distinct device; chunks on distinct
+    cards run at once, chunks that share a card one after another. The
+    complement of spatial_shard, which splits one frame over the devices."""
+    devs = mesh.axis_devices("data")
+    dens, grid = {}, None
+    for d in devs:
+        if d not in dens:
+            dens[d], grid = _make_mode_denoiser(model_cfg, infer_cfg, height, width, params, mode,
+                                                scales, groups, use_flags, d)
+
+    @torch.inference_mode()
+    def run(batch: Mapping[str, Any]) -> Tensor:
+        chunks = mesh_lib.shard_batch(batch, mesh, "data")
+        outs = []
+        for d, chunk in zip(devs, chunks):
+            n = next(iter(chunk.values())).shape[0]
+            outs += [dens[d]({k: v[i] for k, v in chunk.items()})["combined"] for i in range(n)]
+        return torch.stack([o.to(devs[0]) for o in outs])
 
     return run, grid
 

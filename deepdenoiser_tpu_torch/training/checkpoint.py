@@ -10,6 +10,12 @@ directory beside it and renamed into place, so a save killed half way
 previous ones stay, and the leftover temporary directory is ignored and
 cleared by the next save. The newest `keep` checkpoints are kept.
 
+With a data group (parallel/dist.py) rank 0 alone writes, and every rank
+waits at a barrier until the save is in place; every rank restores from
+the same newest checkpoint. The ranks hold the same state, so a
+checkpoint does not say how many ranks wrote it: 1 and N ranks resume
+each other's.
+
 Saves are synchronous; `wait` and `close` keep the JAX manager's
 interface. The port cannot read orbax checkpoints, nor the JAX package the
 port's.
@@ -31,10 +37,11 @@ _TMP_PREFIX = ".tmp-"
 
 
 class CheckpointManager:
-    def __init__(self, directory: str | Path, keep: int = 3):
+    def __init__(self, directory: str | Path, keep: int = 3, group=None):
         self._dir = Path(directory).absolute()
         self._dir.mkdir(parents=True, exist_ok=True)
         self._keep = keep
+        self._group = group
 
     @property
     def directory(self) -> Path:
@@ -49,7 +56,15 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state: TrainState, extra: Optional[Dict[str, Any]] = None) -> bool:
-        """Write checkpoint `step`; False (nothing written) when it exists."""
+        """Write checkpoint `step`; False (nothing written) when it exists.
+        With a data group, rank 0 writes and all ranks return after it."""
+        if self._group is None:
+            return self._write(step, state, extra)
+        written = self._write(step, state, extra) if self._group.is_main else False
+        self._group.barrier()
+        return written
+
+    def _write(self, step: int, state: TrainState, extra: Optional[Dict[str, Any]]) -> bool:
         final = self._dir / str(step)
         if final.exists():
             return False

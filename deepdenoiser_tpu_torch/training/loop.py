@@ -2,7 +2,7 @@
 DeepDenoiser.py — SURVEY.md C16): config -> data -> step -> checkpoints
 -> metrics, with automatic resume and SIGTERM-safe saving.
 
-The port of deepdenoiser_tpu/training/loop.py, on one card. The host loop
+The port of deepdenoiser_tpu/training/loop.py. The host loop
 pulls raw batches from the loader's threads, moves them to the device
 (pinned memory on the card), encodes them there and runs the train step;
 it reads the metrics back only when it logs them. Resume restores the
@@ -10,6 +10,15 @@ parameters, optimizer, schedule, EMA, step AND the data iterator's state,
 so a resumed run continues with the batches an uninterrupted one would
 have seen (bitwise on the CPU; on the card cuDNN's convolution backward
 may sum in another order from run to run).
+
+Data-parallel ranks (a parallel/dist.DataGroup, as `deepdenoiser-torch
+train` builds under `python -m torch.distributed.run`) train together
+when TrainConfig.data_parallel is set, as the JAX loop uses every visible
+device: each rank reads its share of every global batch (data/loader.py),
+the step averages the gradients and metrics, and rank 0 alone writes the
+config, the metric files, the previews and the checkpoints. The SIGTERM
+flag is all-reduced before every step, so all ranks stop, and save, at
+the same step.
 """
 
 from __future__ import annotations
@@ -83,10 +92,21 @@ def fit(
     shard_dir: Optional[str] = None,
     max_steps: Optional[int] = None,
     device=None,
+    group=None,
 ) -> train_lib.TrainState:
     """Run (or resume) training to cfg.train.steps on one device (the card
-    unless `device` says otherwise)."""
+    unless `device` says otherwise), or on every rank of a data group
+    (parallel/dist.py: each rank on its own group.device)."""
     cfg = config_lib.validate_channels(cfg)
+    tcfg, dcfg, mcfg = cfg.train, cfg.data, cfg.model
+    if group is not None:
+        if not tcfg.data_parallel:
+            raise ValueError(f"{group.world} ranks were started but train.data_parallel is off")
+        if dcfg.batch_size % group.world:
+            raise ValueError(f"batch_size {dcfg.batch_size} not divisible by {group.world} ranks")
+        device = group.device
+    main = group is None or group.is_main
+    share = (0, 1) if group is None else (group.rank, group.world)
     dev = device_lib.resolve(device)
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
@@ -99,31 +119,40 @@ def fit(
         meta = shards_lib.ShardMeta.from_json((Path(shard_dir) / "train" / "meta.json").read_text())
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(
             cfg.data, pass_scales=loader_lib.derive_pass_scales(meta)))
-    config_lib.save(cfg, workdir / "config.json")
+        dcfg = cfg.data
+    if main:
+        config_lib.save(cfg, workdir / "config.json")
 
-    tcfg, dcfg, mcfg = cfg.train, cfg.data, cfg.model
     encode = loader_lib.make_batch_encoder(dcfg)
-    step_fn = train_lib.make_train_step(mcfg, tcfg)
-    eval_fn = train_lib.make_full_eval_step(mcfg, dcfg, tcfg.loss)
+    step_fn = train_lib.make_train_step(mcfg, tcfg, group)
+    eval_fn = train_lib.make_full_eval_step(mcfg, dcfg, tcfg.loss, group)
     preview_fn = train_lib.make_eval_preview(mcfg, dcfg)
 
     state = train_lib.create_state(mcfg, tcfg, seed=dcfg.seed, device=dev)
-    ckpt = CheckpointManager(workdir / tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints)
+    ckpt = CheckpointManager(workdir / tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints,
+                             group=group)
     train_it = loader_lib.make_iterator(Path(shard_dir) / "train", dcfg, training=True,
-                                        pin_memory=dev.type == "cuda")
+                                        pin_memory=dev.type == "cuda", share=share)
     restored = ckpt.restore_latest(state)
     if restored is not None:
         state, extra = restored
         if "data_iter" in extra:
             train_it.set_state(extra["data_iter"])
-        print(f"resumed from step {state.step}", flush=True)
+        if main:
+            print(f"resumed from step {state.step}", flush=True)
 
-    logger = MetricLogger(workdir, "train")
-    eval_logger = MetricLogger(workdir, "eval")
+    logger = MetricLogger(workdir, "train") if main else None
+    eval_logger = MetricLogger(workdir, "eval") if main else None
     stop = {"now": False}
 
     def _sigterm(_sig, _frm):
         stop["now"] = True
+
+    def stopping() -> bool:
+        if group is None:
+            return stop["now"]
+        flag = torch.tensor([float(stop["now"])], device=dev)
+        return bool(group.all_reduce_max_(flag).item())
 
     old_handler = signal.signal(signal.SIGTERM, _sigterm)
 
@@ -135,17 +164,17 @@ def fit(
     step_num = state.step
     has_validation = (Path(shard_dir) / "validation" / "meta.json").exists()
     try:
-        while step_num < target and not stop["now"]:
+        while step_num < target and not stopping():
             batch = encode(_to_device(next(train_it), dev))
             state, mets = step_fn(state, batch)
             step_num += 1
-            if step_num % tcfg.log_every == 0 or step_num == target:
+            if main and (step_num % tcfg.log_every == 0 or step_num == target):
                 logger.log(step_num, mets)
             if step_num % tcfg.eval_every == 0 and has_validation:
-                emets, raw0 = _run_eval(eval_fn, state, shard_dir, dcfg, dev)
-                if emets:
+                emets, raw0 = _run_eval(eval_fn, state, shard_dir, dcfg, dev, share)
+                if main and emets:
                     eval_logger.log(step_num, emets)
-                if raw0 is not None:
+                if main and raw0 is not None:
                     _log_preview(preview_fn, state, raw0, step_num, eval_logger, workdir)
             if step_num % tcfg.checkpoint_every == 0:
                 save(step_num)
@@ -153,20 +182,23 @@ def fit(
     finally:
         train_it.close()
         ckpt.close()
-        logger.close()
-        eval_logger.close()
+        for lg in (logger, eval_logger):
+            if lg is not None:
+                lg.close()
         signal.signal(signal.SIGTERM, old_handler)
     if stop["now"]:
         print(f"SIGTERM: saved at step {step_num} and exiting", flush=True)
     return state
 
 
-def _run_eval(eval_fn, state, shard_dir, dcfg, dev, max_batches: int = 8):
+def _run_eval(eval_fn, state, shard_dir, dcfg, dev, share=(0, 1), max_batches: int = 8):
     """Eval over raw validation batches (encode and decode inside the eval
-    step). Returns (mean metrics, the first raw batch for previews)."""
+    step; a rank evaluates its share of each). Returns (mean metrics, the
+    first raw batch for previews)."""
     agg: Dict[str, list] = {}
     first_raw = None
-    source = loader_lib.make_dataset(Path(shard_dir) / "validation", dcfg, training=False)
+    source = loader_lib.make_dataset(Path(shard_dir) / "validation", dcfg, training=False,
+                                     share=share)
     for i, raw in enumerate(loader_lib.iterate_epoch(source)):
         if i >= max_batches:
             break

@@ -20,8 +20,16 @@ Where the JAX package uses optax, the port matches it step for step:
     rate);
   * the EMA is e*d + p*(1-d) after the update.
 
-Data-parallel training over several cards (the JAX package's shard_map +
-pmean) is the multi-device slice's: a `mesh` argument raises.
+Data-parallel training: where the JAX package takes a 'data' mesh, the
+steps take a parallel/dist.DataGroup. Each rank runs the step on its
+share of the global batch; between the backward pass and the update one
+all-reduce averages the gradients and the metrics over the ranks (the
+JAX package's pmean of both), so clipping, Adam and the EMA see the
+averaged gradients and every rank makes the same update. The metrics are
+means of the ranks' own: `psnr_encoded` is the mean of the ranks' PSNRs,
+as pmean of per-shard PSNRs is, and `grad_norm` is the averaged
+gradients' norm. The model is not wrapped, so its state_dict keys (and
+checkpoints) are the same on 1 and N ranks.
 """
 
 from __future__ import annotations
@@ -43,11 +51,28 @@ Tensor = torch.Tensor
 Batch = Dict[str, Tensor]  # {'x': (N,H,W,Cin), 'y': (N,H,W,Cout)} (+ 'mask', 'y_teacher')
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training over several cards comes with the multi-device slice "
-            "of the port")
+def _mean_over_ranks(group, mets: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """The metrics averaged over the group's ranks (one all-reduce)."""
+    if group is None:
+        return mets
+    flat = group.all_reduce_mean_(torch.stack([v.detach().float() for v in mets.values()]))
+    return dict(zip(mets, flat.unbind()))
+
+
+def _all_reduce_grads(group, model: torch.nn.Module, mets: Dict[str, Tensor]
+                      ) -> Dict[str, Tensor]:
+    """Average every parameter's gradient and the metrics over the ranks in
+    one all-reduce of one flat buffer; the gradients become views of it."""
+    params = list(model.parameters())
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [v.detach().float().reshape(1) for v in mets.values()])
+    group.all_reduce_mean_(flat)
+    pos = 0
+    for p in params:
+        p.grad = flat[pos : pos + p.numel()].view_as(p)
+        pos += p.numel()
+    return dict(zip(mets, flat[pos:].unbind()))
 
 
 @dataclasses.dataclass
@@ -180,11 +205,12 @@ def _apply_update(cfg: TrainConfig, state: TrainState, mets: Dict[str, Tensor]) 
     return {**mets, "grad_norm": norm}
 
 
-def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh=None
+def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, group=None
                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, Tensor]]]:
     """step(state, batch) -> (state, metrics): one update, in place. The
-    metrics are 0-d tensors on the device (reading them syncs)."""
-    _no_mesh(mesh)
+    metrics are 0-d tensors on the device (reading them syncs). With a
+    data group (parallel/dist.py), `batch` is this rank's share and the
+    gradients and metrics are averaged over the ranks before the update."""
     scale_w = train_cfg.scale_supervision_weight if model_cfg.n_scales > 1 else 0.0
 
     def step(state: TrainState, batch: Batch):
@@ -193,6 +219,8 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh=None
         loss, mets = _loss_and_metrics(state.model, train_cfg.loss, batch, scale_w,
                                        train_cfg.distill_weight)
         loss.backward()
+        if group is not None:
+            mets = _all_reduce_grads(group, state.model, mets)
         mets = _apply_update(train_cfg, state, mets)
         return state, {k: v.detach() for k, v in mets.items()}
 
@@ -206,15 +234,16 @@ def _with_params(state: TrainState, params: Optional[Dict[str, Tensor]]) -> Call
     return lambda x, **kw: torch.func.functional_call(state.model, params, (x,), kw)
 
 
-def make_full_eval_step(model_cfg: ModelConfig, data_cfg, loss_cfg: losses.LossConfig, mesh=None):
+def make_full_eval_step(model_cfg: ModelConfig, data_cfg, loss_cfg: losses.LossConfig,
+                        group=None):
     """eval(state, raw_batch) -> metrics over RAW batches, for the
     parameters and the EMA (prefix 'ema_'): encoded-space loss and PSNR,
     and tonemapped PSNR / SSIM of the decoded and recomposed prediction,
     the numbers the inference side reports; 'noisy_psnr_tm' anchors the
-    gain."""
+    gain. With a data group, each rank evaluates its share of the batch and
+    the metrics are the mean of the ranks'."""
     from deepdenoiser_tpu_torch.data import loader as loader_lib
 
-    _no_mesh(mesh)
     encode = loader_lib.make_batch_encoder(data_cfg)
     decode = loader_lib.make_eval_decoder(data_cfg)
     tm = metrics.tonemap_for_metrics
@@ -234,7 +263,7 @@ def make_full_eval_step(model_cfg: ModelConfig, data_cfg, loss_cfg: losses.LossC
             mets[prefix + "psnr_tm"] = metrics.psnr(tm(pred_rgb), tm(ref_rgb))
             mets[prefix + "ssim_tm"] = metrics.ssim(tm(pred_rgb), tm(ref_rgb)).mean()
         mets["noisy_psnr_tm"] = metrics.psnr(tm(noisy_rgb), tm(ref_rgb))
-        return mets
+        return _mean_over_ranks(group, mets)
 
     return evaluate
 
@@ -259,16 +288,16 @@ def make_eval_preview(model_cfg: ModelConfig, data_cfg, max_images: int = 4):
     return preview
 
 
-def make_eval_step(model_cfg: ModelConfig, loss_cfg: losses.LossConfig, mesh=None,
+def make_eval_step(model_cfg: ModelConfig, loss_cfg: losses.LossConfig, group=None,
                    use_ema: bool = False):
-    """eval(state, encoded_batch) -> {'loss', 'psnr_encoded'}."""
-    _no_mesh(mesh)
+    """eval(state, encoded_batch) -> {'loss', 'psnr_encoded'}, the mean of
+    the ranks' with a data group."""
 
     @torch.no_grad()
     def evaluate(state: TrainState, batch: Batch) -> Dict[str, Tensor]:
         state.model.eval()
         params = state.ema_params if use_ema else None
         _, mets = _loss_and_metrics(_with_params(state, params), loss_cfg, batch)
-        return mets
+        return _mean_over_ranks(group, mets)
 
     return evaluate

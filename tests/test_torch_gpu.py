@@ -517,3 +517,77 @@ def test_training_batch_stays_on_the_card_without_a_host_sync(cuda, monkeypatch,
     assert batch["y"].shape == (6, 32, 32, transforms.joint_output_channels())
     for v in batch.values():
         assert v.device.type == "cuda" and bool(torch.isfinite(v).all())
+
+
+# --------------------------------------------------------------------------
+# multi-device paths on the one card
+# --------------------------------------------------------------------------
+
+
+def test_band_parallel_kpn_frame_on_the_card_equals_the_whole_frame(cuda):
+    """kpn-hq in 2 bands on ["cuda"] * 2 (fp32, TF32 off): 8 filter-apply
+    launches a band, and the frame equals the one-device frame with the
+    certified halo."""
+    from deepdenoiser_tpu_torch.parallel import mesh
+
+    h, w = 160, 96
+    noisy = synthetic.add_mc_noise(synthetic.generate_clean_passes(h, w, seed=5), spp=4, seed=6)
+    cfg = config.validate_channels(config.PRESETS["kpn-hq"])
+    icfg = dataclasses.replace(cfg.infer, compute_dtype="float32", spatial_shard=True)
+    params = weights_io.load_release_params(REPO / "weights" / "kpn_hq_ema_f16.npz")
+    frame = {k: torch.from_numpy(v) for k, v in noisy.items()}
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        banded, _ = pipeline.make_joint_frame_denoiser(
+            cfg.model, icfg, h, w, params, mesh=mesh.make_mesh(2, "spatial", devices=["cuda"] * 2))
+        whole, _ = pipeline.make_joint_frame_denoiser(cfg.model, icfg, h, w, params)
+        kpn_apply.reset_launches()
+        got = banded(frame)
+        torch.cuda.synchronize()
+        assert kpn_apply.launches == 2 * cfg.model.kpn_slots
+        want = whole(frame)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    for k, ref in want.items():
+        assert float((got[k] - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), k
+
+
+def test_two_gloo_ranks_on_the_card_match_the_one_rank_step(cuda, tmp_path):
+    """Two data-parallel ranks share the card over gloo (NCCL refuses two
+    ranks on one card); three steps equal the one-rank step on the global
+    batch, and each rank launches the filter apply and its d_w 8 times a
+    step."""
+    import torch_dp_worker
+    from deepdenoiser_tpu_torch.models import factory
+    from deepdenoiser_tpu_torch.training import train
+
+    mkw = dict(backbone="unet", in_channels=41, out_channels=24, base_width=8, depth=1,
+               convs_per_level=1, kernel_prediction=True, kpn_size=5, kpn_slots=8,
+               kpn_logit_norm=True, act="leaky_relu")
+    tkw = dict(learning_rate=2e-4, warmup_steps=0, ema_decay=0.9, steps=200)
+    m, t = factory.ModelConfig(**mkw), config.TrainConfig(**tkw)
+    params = weights_io.flatten(weights_io.params_from_state_dict(
+        factory.init_model(m, torch.Generator().manual_seed(0)).state_dict()))
+    rng = np.random.default_rng(1)
+    batch = {"x": rng.random((8, 32, 32, 41)).astype(np.float32),
+             "y": rng.random((8, 32, 32, 24)).astype(np.float32)}
+    res = torch_dp_worker.spawn(torch_dp_worker.train_steps, 2, tmp_path, "cuda",
+                                mkw, tkw, params, batch, 3)
+    assert all(launches == (8, 8) for r in res for launches in r["launches"])
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        state = train.create_state(m, t, params=weights_io.unflatten(params))
+        step = train.make_train_step(m, t)
+        for got in res[0]["mets"]:
+            state, want = step(state, {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()})
+            for k in ("loss", "grad_norm"):
+                assert got[k] == pytest.approx(float(want[k]), rel=1e-5), k
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    want = torch_dp_worker.flat_state(state)
+    for k, v in res[0]["state"].items():
+        np.testing.assert_array_equal(res[1]["state"][k], v, err_msg=k)
+        if k.startswith(("params/", "ema/")):
+            np.testing.assert_allclose(v, want[k], rtol=0, atol=2e-6, err_msg=k)

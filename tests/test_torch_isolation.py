@@ -20,6 +20,7 @@ from deepdenoiser_tpu_torch import cli, config, device, weights_io
 from deepdenoiser_tpu_torch.data import exr, synthetic
 from deepdenoiser_tpu_torch.inference import pipeline
 from deepdenoiser_tpu_torch.models import factory
+from deepdenoiser_tpu_torch.parallel import mesh
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "deepdenoiser_tpu_torch"
@@ -59,7 +60,7 @@ def test_importing_every_port_module_leaves_jax_out():
     for new in ("models.tiramisu", "models.multiscale", "inference.sequence", "inference.tiled",
                 "data.prepare", "ops.metrics", "cli", "data.mc_tracer", "data.synthetic_device",
                 "data.synthetic_holdout", "data.synthetic_spheres", "data.synthetic_boxes",
-                "data.draws"):
+                "data.draws", "parallel.mesh", "parallel.halo", "parallel.dist"):
         assert f"deepdenoiser_tpu_torch.{new}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -154,9 +155,10 @@ def test_cli_without_device_raises(no_card, tmp_path, preset, weights):
     (dict(infer=dict(spatial_shard=True)), "spatial"),
 ])
 def test_later_slice_options_raise_not_implemented(kw, match):
-    """Spatial sharding belongs to the multi-device slice and raises; the
-    tiled options are ported and build; use_flags is ported and wants the
-    flag-conditioned model's 45 input channels."""
+    """Every option of the later slices is ported: the tiled options build,
+    use_flags wants the flag-conditioned model's 45 input channels, and
+    spatial_shard without a mesh runs one device with the certified halo,
+    as in the JAX package."""
     kw = dict(kw)
     cfg = config.validate_channels(config.PRESETS["flagship-hq"])
     infer = dataclasses.replace(cfg.infer, **kw.pop("infer", {}))
@@ -165,17 +167,13 @@ def test_later_slice_options_raise_not_implemented(kw, match):
     def make():
         return pipeline.make_joint_frame_denoiser(cfg.model, infer, 32, 48, params,
                                                   device="cpu", **kw)
-    if match == "spatial":
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            make()
-        return
     den, grid = make()
     noisy = synthetic.add_mc_noise(synthetic.generate_clean_passes(32, 48, seed=0), spp=4, seed=1)
     if match == "use_flags":
         with pytest.raises(RuntimeError, match="channels"):  # 45 planes into a 41-channel stem
             den(noisy)
         return
-    if infer.tile:  # tiled: the certified halo, not the 32 px border
+    if infer.tile or infer.spatial_shard:  # the certified halo, not the 32 px border
         assert grid.halo >= factory.halo(cfg.model) > cfg.infer.border
     out = den(noisy)
     assert tuple(out["combined"].shape) == (32, 48, 3) and torch.isfinite(out["combined"]).all()
@@ -197,20 +195,32 @@ def test_group_and_rgb_later_slice_options_raise_not_implemented(
                                    convs_per_level=1, act="leaky_relu", predict_residual=True)
     infer = dataclasses.replace(config.InferenceConfig(), **infer_kw)
     params = weights_io.load_release_params(REPO / "weights" / weights)
-    if match == "spatial":  # the multi-device slice's
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            factory_fn(mcfg, infer, 32, 48, params, device="cpu")
-        return
-    # tiled and feathered frames are ported: they build and run
+    # tiled and feathered frames are ported, and spatial_shard without a
+    # mesh keeps the certified halo on one device: they build and run
     den, grid = factory_fn(mcfg, infer, 32, 48, params, device="cpu")
+    if match == "spatial":
+        assert grid.halo >= factory.halo(mcfg)
     noisy = synthetic.add_mc_noise(synthetic.generate_clean_passes(32, 48, seed=0), spp=4, seed=1)
     out = den(noisy)
     assert tuple(out["combined"].shape) == (32, 48, 3) and torch.isfinite(out["combined"]).all()
 
 
 def test_group_frame_with_a_mesh_raises_not_implemented():
+    """A group frame with a mesh and spatial_shard runs band-parallel (two
+    bands on ["cpu"] * 2) and equals the one-device frame with the certified
+    halo; a frame too short for the bands' halo is refused as in JAX."""
     cfg = config.validate_channels(config.PRESETS["flagship-max"])
     params = weights_io.load_release_params(REPO / "weights" / "kpn_ema_f16.npz")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        pipeline.make_group_frame_denoiser(cfg.model, cfg.infer, 32, 48, params,
-                                           device="cpu", mesh=object())
+    icfg = dataclasses.replace(cfg.infer, compute_dtype="float32", spatial_shard=True)
+    mesh2 = mesh.make_mesh(2, "spatial", devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="band height"):
+        pipeline.make_group_frame_denoiser(cfg.model, icfg, 32, 48, params, mesh=mesh2)
+    h, w = 160, 48
+    noisy = synthetic.add_mc_noise(synthetic.generate_clean_passes(h, w, seed=0), spp=4, seed=1)
+    banded, _ = pipeline.make_group_frame_denoiser(cfg.model, icfg, h, w, params,
+                                                   device="cpu", mesh=mesh2)
+    whole, _ = pipeline.make_group_frame_denoiser(cfg.model, icfg, h, w, params, device="cpu")
+    got, want = banded(noisy), whole(noisy)
+    assert set(got) == set(want)
+    for k, ref in want.items():
+        assert float((got[k] - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), k

@@ -230,3 +230,33 @@ def test_sequence_entry_points_without_device_raise(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["eval", "--preset", "flagship-hq", "--weights",
                   str(REPO / "weights" / "flagship_hq_ema_f16.npz"), "--renders", str(tmp_path)])
+
+
+@pytest.mark.parametrize("mode", ["joint", "group"])
+def test_batch_frame_denoiser_matches_jax_on_8_devices(devices8, mode):
+    """tests/test_sequence.py:53-81 in both packages: 8 frames over an
+    8-device 'data' mesh (the port's lists the CPU 8 times), each frame
+    equal to JAX's and to its own one-frame denoise."""
+    from deepdenoiser_tpu.parallel import mesh as jmesh
+    from deepdenoiser_tpu_torch.inference import pipeline
+    from deepdenoiser_tpu_torch.parallel import mesh
+
+    jcfg, cfg, params = _tiny(mode, depth=1, predict_residual=False)
+    _, frames = _frames(8)
+    batch = {k: np.stack([f[k] for f in frames]) for k in frames[0]}
+    jm = jmesh.make_mesh(8)
+    jden, jgrid = jsequence.make_batch_frame_denoiser(
+        jcfg, jconfig.InferenceConfig(tile=0, compute_dtype="float32"), jm, H, W, mode=mode)
+    want = np.asarray(jden(params, jmesh.shard_batch({k: jnp.asarray(v) for k, v in batch.items()},
+                                                     jm)))
+    icfg = config.InferenceConfig(tile=0, compute_dtype="float32")
+    den, grid = sequence.make_batch_frame_denoiser(
+        cfg, icfg, mesh.make_mesh(8, devices=["cpu"] * 8), H, W, params, mode=mode)
+    got = den(batch)
+    assert tuple(got.shape) == (8, H, W, 3) and grid.halo == jgrid.halo
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    make = (pipeline.make_joint_frame_denoiser if mode == "joint"
+            else pipeline.make_group_frame_denoiser)
+    one, _ = make(cfg, icfg, H, W, params, device="cpu")
+    for i, f in enumerate(frames):
+        np.testing.assert_allclose(got[i].numpy(), one(f)["combined"].numpy(), rtol=1e-5, atol=1e-5)

@@ -254,12 +254,34 @@ def test_nan_inputs_surface_in_the_metrics():
     assert math.isnan(float(jmets["loss"])) and math.isnan(float(jmets["grad_norm"]))
 
 
-def test_a_mesh_is_the_multi_device_slice():
-    m, t = factory.ModelConfig(**TINY_UNET), config.TrainConfig()
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        train.make_train_step(m, t, mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        train.make_full_eval_step(m, config.DataConfig(mode="joint"), t.loss, mesh=object())
+def test_a_mesh_is_the_multi_device_slice(tmp_path):
+    """Where the JAX package takes a mesh the steps take a data group
+    (parallel/dist.py); on one gloo rank the all-reduced step and the
+    full eval step equal the steps without a group bit for bit.
+    tests/test_torch_dp.py runs them on 2 and 4 ranks."""
+    from deepdenoiser_tpu_torch.parallel import dist
+
+    m, t = factory.ModelConfig(**TINY_KPN), config.TrainConfig(warmup_steps=0, ema_decay=0.9)
+    data = config.DataConfig(mode="joint")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(TINY_KPN).items()}
+    raw = {k: torch.from_numpy(v) for k, v in _raw_joint_batch().items()}
+    threads = torch.get_num_threads()
+    group = dist.init(0, 1, f"file://{tmp_path / 'rendezvous'}", device="cpu")
+    try:
+        outs = []
+        for grp in (None, group):
+            state = train.create_state(m, t, seed=5, device="cpu")
+            state, mets = train.make_train_step(m, t, grp)(state, batch)
+            emets = train.make_full_eval_step(m, data, t.loss, grp)(state, raw)
+            outs.append(({k: float(v) for k, v in {**mets, **emets}.items()},
+                         _flat_params(state), _flat_ema(state)))
+    finally:
+        dist.shutdown(group)
+        torch.set_num_threads(threads)
+    assert outs[0][0] == outs[1][0]
+    for want, got in zip(outs[0][1:], outs[1][1:]):
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
 def test_create_state_without_a_card_raises():
