@@ -7,7 +7,9 @@ Drives the port's main paths through the entry points a user calls —
 inference/pipeline.py at 1080p with the release weights; `synth-data`,
 `prepare-data`, `train` and `denoise --checkpoint` for kpn-hq at the
 training recipe's batch and crop; the path tracer's 1080p frame and the
-train step fed by batches made on the card — and checks every CUDA kernel against
+train step fed by batches made on the card; the TF goldens, a TF checkpoint
+of kpn-hq, the pretraining recipe and the release export — and checks every
+CUDA kernel against
 its plain PyTorch version on the card. Phases, each
 printing its results on its own lines; any failure raises and the run exits
 non-zero:
@@ -114,7 +116,23 @@ non-zero:
                  under torch.distributed.run --nproc_per_node 2 for 10 steps
                  of phase 18's recipe, and `denoise --checkpoint` of that run
                  in one process
-  22. one JSON line {"kernels": [...]}; every phase's seconds on [time] lines
+  22. release   the release tooling at full width: the four frozen TF goldens
+                 (tests/goldens/tf_compat) read without TensorFlow and forwarded
+                 on the card in fp32 (max|d| <= 2e-5; 2 K1 launches, k=3, for
+                 kpn); kpn-hq's release npz through the port's TF writer and
+                 reader, bitwise, with the bundle's bytes and the write and read
+                 seconds, and the 1080p frame with those weights bitwise equal to
+                 the release weights' frame (8 K1 launches); the recipe
+                 (tools/pretrain_flagship.py): kpn-hq --init-from its release
+                 npz, --teacher flagship-hq, mixed family, batch 16, crop 96, 20
+                 steps, validation every 10 (8 K1 and 8 d_w launches a step, 8 K1
+                 a validation batch, counted apart; a -best checkpoint with its
+                 extra), ms/step and peak memory, and the same run without the
+                 teacher; the -best checkpoint through
+                 tools/export_release_weights.py (the release file's keys, shapes
+                 and fp16) and `deepdenoiser-torch denoise --weights` on the 1080p
+                 frame (gain > 0, 8 K1 launches)
+  23. one JSON line {"kernels": [...]}; every phase's seconds on [time] lines
   (with --profile, the frame phases and the train steps also print device
   time by kernel and the device's busy share, from torch.profiler)
   then the card's name and power limit as nvidia-smi prints them, and last
@@ -379,7 +397,8 @@ def phase_kernels(card: dict) -> dict:
     cases = [((1, PLANE_H, PLANE_W, 3), 5, 24, "joint"), ((4, PLANE_H, PLANE_W, 3), 5, 14, "group"),
              ((TILE_BATCH, NET_TILE, NET_TILE, 3), 5, 24, "tile"),  # a chunk of a tiled joint frame
              ((TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3), 5, 24, "train"),  # the kpn-hq train step's
-             ((4, 260, 390, 3), 3, 0, None), ((1, 37, 53, 3), 5, 0, None)]
+             ((4, 260, 390, 3), 3, 0, None), ((1, 37, 53, 3), 5, 0, None),
+             ((1, 64, 64, 3), 3, 8, None)]  # the kpn TF golden's slot 1 (phase 22)
     worst = 0.0
     timings = {}
     for shape, k, stack_channels, path in cases:
@@ -2624,6 +2643,225 @@ def phase_multi_device(frame: dict, card: dict) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# release: the frozen TF goldens, kpn-hq's weights through a TF checkpoint,
+# the pretraining recipe's loop and the release export
+# --------------------------------------------------------------------------
+
+RELEASE_STEPS, RELEASE_VAL_EVERY, RELEASE_LOG_EVERY = 20, 10, 5
+RELEASE_TEACHER = "flagship-hq"
+RELEASE_EXTRA = {"model", "mode", "val_psnr", "family"}
+
+
+@contextlib.contextmanager
+def _k1_in_validation(counts: list):
+    """Appends K1's launches inside each call of the recipe's eval step
+    (training/train.make_eval_step) to `counts`, so a recipe run's launches
+    split into its steps' and its validation's."""
+    from deepdenoiser_tpu_torch.ops import kpn_apply
+    from deepdenoiser_tpu_torch.training import train as train_lib
+
+    make_eval = train_lib.make_eval_step
+
+    def counted(*args, **kwargs):
+        fn = make_eval(*args, **kwargs)
+
+        def run(*a, **kw):
+            before = kpn_apply.launches
+            try:
+                return fn(*a, **kw)
+            finally:
+                counts.append(kpn_apply.launches - before)
+        return run
+
+    train_lib.make_eval_step = counted
+    try:
+        yield counts
+    finally:
+        train_lib.make_eval_step = make_eval
+
+
+def _recipe_run(out: Path, teacher: bool) -> dict:
+    """kpn-hq through tools/pretrain_flagship.py, from the release weights:
+    its summary, launches (steps and validation apart), wall and peak."""
+    import shutil
+
+    from deepdenoiser_tpu_torch.tools import pretrain_flagship
+
+    for d in (out, Path(f"{out}-best")):
+        shutil.rmtree(d, ignore_errors=True)
+    argv = ["--model", "kpn-hq", "--init-from", str(ROOT / "weights" / "kpn_hq_ema_f16.npz"),
+            "--family", "mixed", "--batch", str(TRAIN_BATCH), "--crop", str(TRAIN_CROP),
+            "--steps", str(RELEASE_STEPS), "--val-every", str(RELEASE_VAL_EVERY),
+            "--log-every", str(RELEASE_LOG_EVERY), "--out", str(out)]
+    if teacher:
+        argv += ["--teacher", RELEASE_TEACHER]
+    args = pretrain_flagship.build_parser().parse_args(argv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _k1_in_validation([]) as in_val, contextlib.redirect_stdout(io.StringIO()):
+        summary = pretrain_flagship.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_val = len(summary["val"]) * pretrain_flagship.VAL_BATCHES
+    if in_val != [8] * n_val or n_val != 2 * pretrain_flagship.VAL_BATCHES:
+        raise AssertionError(f"recipe: K1 launches in validation {in_val}, want 8 in each of "
+                             f"{2 * pretrain_flagship.VAL_BATCHES} batches")
+    steps = {**launches, "kpn_apply": launches["kpn_apply"] - sum(in_val)}
+    expect_launches(f"recipe steps (teacher {teacher})", steps, RELEASE_STEPS, kpn_apply=8,
+                    kpn_apply_bwd_weights=8)
+    losses = [r["loss"] for r in summary["log"]]
+    if [r["step"] for r in summary["log"]] != list(range(RELEASE_LOG_EVERY, RELEASE_STEPS + 1,
+                                                          RELEASE_LOG_EVERY)) \
+            or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"recipe: log {summary['log']}")
+    seg = [r["ms_per_step"] for r in summary["log"][1:]]  # the first segment warms up
+    return {"summary": summary, "wall_s": wall,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "ms": statistics.median(seg), "ms_segments": [r["ms_per_step"] for r in summary["log"]],
+            "launches_per_step": {k: v / RELEASE_STEPS for k, v in steps.items()},
+            "launches_per_val_batch": in_val[0]}
+
+
+def phase_release(frame: dict, card: dict) -> dict:
+    """The release tooling on the card at full width: (a) the four frozen TF
+    goldens through compat/goldens.check (2 K1 launches for kpn); (b)
+    kpn-hq's release weights through the port's TF writer and reader,
+    bitwise, and the 1080p frame with them bitwise equal to the release
+    weights' frame; (c) tools/pretrain_flagship.py: kpn-hq from the release
+    npz, teacher flagship-hq, mixed family, batch 16, crop 96, 20 steps,
+    validation every 10 (8 K1 and 8 d_w launches a step, 8 K1 a validation
+    batch, a -best checkpoint with its extra), and the same run without a
+    teacher; (d) the -best checkpoint through
+    tools/export_release_weights.py and `deepdenoiser-torch denoise
+    --weights` on the 1080p frame."""
+    import numpy as np
+
+    from deepdenoiser_tpu_torch import config, weights_io
+    from deepdenoiser_tpu_torch.compat import goldens
+    from deepdenoiser_tpu_torch.compat import tf_checkpoint as tfc
+    from deepdenoiser_tpu_torch.inference import pipeline
+    from deepdenoiser_tpu_torch.tools import export_release_weights
+    from deepdenoiser_tpu_torch.training.checkpoint import CheckpointManager
+
+    work = WORK / "release"
+    work.mkdir(parents=True, exist_ok=True)
+    res = {"goldens": {}}
+
+    # (a) the goldens, each forwarded on the card in fp32
+    for fam in sorted(goldens.GOLDEN_CFGS):
+        reset_launches()
+        dev = goldens.check(fam, device="cuda")
+        torch.cuda.synchronize()
+        launches = read_launches()
+        expect_launches(f"golden {fam}", launches, kpn_apply=2 if fam == "kpn" else 0)
+        res["goldens"][fam] = {"max_abs_dev": dev, "kpn_apply": launches["kpn_apply"]}
+    log("[release] TF goldens on the card (fp32, TF32 off), max|d| against io.npz y, limit "
+        f"{goldens.ATOL:g}: " + ", ".join(f"{f} {r['max_abs_dev']:.3e} ({r['kpn_apply']} K1)"
+                                          for f, r in res["goldens"].items()))
+
+    # (b) kpn-hq's release weights through a TF checkpoint and back
+    cfg = config.validate_channels(config.PRESETS["kpn-hq"])
+    params = weights_io.load_release_params(ROOT / "weights" / "kpn_hq_ema_f16.npz")
+    prefix = work / "tf" / "model.ckpt"
+    prefix.parent.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    names = tfc.export_checkpoint(params, cfg.model, prefix)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = tfc.import_checkpoint(prefix, cfg.model)
+    read_s = time.perf_counter() - t0
+    nbytes = sum(p.stat().st_size for p in prefix.parent.glob("model.ckpt.*"))
+    want, got = weights_io.flatten(params), weights_io.flatten(back)
+    if sorted(got) != sorted(want) or any(got[k].tobytes() != v.tobytes() for k, v in want.items()):
+        raise AssertionError("kpn-hq release weights changed through the TF checkpoint")
+    noisy = {k: torch.as_tensor(v, device="cuda") for k, v in frame["noisy"].items()}
+    clean_c, noisy_c = _frame_on_card(frame)
+    outs, launches = [], None
+    with deterministic_convs():
+        for tree in (params, back):
+            den, _ = pipeline.make_joint_frame_denoiser(cfg.model, cfg.infer, FRAME_H, FRAME_W,
+                                                        tree)
+            den(noisy)  # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            outs.append(den(noisy))
+            torch.cuda.synchronize()
+            launches = read_launches()
+            expect_launches("kpn-hq frame, release / round-tripped weights", launches,
+                            kpn_apply=8)
+            del den
+    check_frame("kpn-hq with round-tripped weights", outs[1])
+    if set(outs[0]) != set(outs[1]) or not all(torch.equal(outs[0][k], outs[1][k])
+                                               for k in outs[0]):
+        raise AssertionError("kpn-hq frame with round-tripped weights != release weights' frame")
+    res["tf"] = {"variables": len(names), "bytes": nbytes, "write_s": write_s, "read_s": read_s,
+                 "kpn_apply": launches["kpn_apply"],
+                 "gain_db": _gain_db(outs[1]["combined"], noisy_c, clean_c)}
+    del outs
+    torch.cuda.empty_cache()
+    log(f"[release] kpn-hq release npz -> TF checkpoint ({len(names)} variables, {nbytes} bytes "
+        f"in .index + .data) in {write_s:.3f} s -> read back in {read_s:.3f} s: bitwise equal; "
+        f"the 1080p frame with the round-tripped weights == the release weights' frame, bitwise, "
+        f"{launches['kpn_apply']} K1 launches, gain {res['tf']['gain_db']:.4f} dB")
+
+    # (c) the recipe, with and without the teacher
+    out = work / "kpn-hq"
+    taught = _recipe_run(out, teacher=True)
+    state, extra = CheckpointManager(f"{out}-best").read_latest(map_location="cpu")
+    if set(extra) != RELEASE_EXTRA or extra["model"] != "kpn-hq" or extra["mode"] != "joint":
+        raise AssertionError(f"recipe: -best extra {extra}")
+    plain = _recipe_run(work / "kpn-hq-plain", teacher=False)
+    res["recipe"] = {"teacher": taught, "plain": plain, "best_step": state["step"],
+                     "best_extra": extra}
+    del state
+    for label, r in (("teacher " + RELEASE_TEACHER, taught), ("no teacher", plain)):
+        s = r["summary"]
+        log(f"[release] recipe kpn-hq, {label}: batch {TRAIN_BATCH}, crop {TRAIN_CROP}, mixed, "
+            f"{RELEASE_STEPS} steps from the release npz: {r['ms']:.2f} ms/step (median of the "
+            f"{RELEASE_LOG_EVERY}-step segments after the first; host clock, validation and "
+            f"saves out; segments " + " ".join(f"{v:.2f}" for v in r["ms_segments"])
+            + f"), wall {r['wall_s']:.1f} s, peak {r['peak_gib']:.2f} GiB; loss "
+            + " ".join(f"{x['loss']:.4f}" for x in s["log"]) + "; val psnr_encoded "
+            + " ".join(f"{v['step']}:{v['psnr_encoded']:.3f}" for v in s["val"])
+            + f" dB; launches a step {r['launches_per_step']['kpn_apply']:g} K1, "
+            f"{r['launches_per_step']['kpn_apply_bwd_weights']:g} d_w; "
+            f"{r['launches_per_val_batch']} K1 a validation batch | {card['smi']}")
+    log(f"[release] -best checkpoint at step {res['recipe']['best_step']}, extra {extra}")
+
+    # (d) the -best checkpoint exported and denoising through the CLI
+    npz = work / "kpn_hq_best_f16.npz"
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = export_release_weights.main(["--ckpt", f"{out}-best", "--out", str(npz),
+                                          "--model", "kpn-hq"])
+    if rc != 0:
+        raise AssertionError(f"export_release_weights returned {rc}")
+    shipped = ROOT / "weights" / "kpn_hq_ema_f16.npz"
+    with np.load(npz) as a, np.load(shipped) as b:
+        layout = {k: (a[k].shape, a[k].dtype) for k in a.files}
+        if layout != {k: (b[k].shape, b[k].dtype) for k in b.files}:
+            raise AssertionError("exported npz: keys/shapes/dtypes differ from the release file's")
+    cli_out, cli_launches = _cli_denoise("kpn-hq-export", frame, ["--preset", "kpn-hq"], str(npz),
+                                         "joint")
+    expect_launches("kpn-hq cli frame with the exported npz", cli_launches, kpn_apply=8)
+    res["export"] = {"bytes": npz.stat().st_size, "shipped_bytes": shipped.stat().st_size,
+                     "arrays": len(layout), "kpn_apply": cli_launches["kpn_apply"],
+                     "gain_db": _gain_db(cli_out, noisy_c, clean_c),
+                     "printed": printed.getvalue().strip().replace("\n", "; ")}
+    if not res["export"]["gain_db"] > 0:
+        raise AssertionError(f"exported npz: no gain ({res['export']['gain_db']})")
+    log(f"[release] export: {res['export']['printed']} | {res['export']['bytes']} bytes "
+        f"(shipped {res['export']['shipped_bytes']}), {len(layout)} arrays with the release "
+        f"file's keys, shapes and fp16; `denoise --weights` on the 1080p frame: gain "
+        f"{res['export']['gain_db']:.4f} dB, {cli_launches['kpn_apply']} K1 launches")
+    torch.cuda.empty_cache()
+    return res
+
+
 def _kernel_row(name: str, source: str, replaces: str, launches: int, t: dict,
                 on_path: bool = True, **extra) -> dict:
     """One entry of the kernels line; `on_path`: some entry point's path
@@ -2678,8 +2916,9 @@ def _run_phases(phase, card: dict, holdouts, profile: bool) -> tuple:
     mc_res = phase("mc", phase_mc, frame, card, holdouts)
     batch_res = phase("device-batch", phase_device_batch, card, train_res)
     md_res = phase("multi-device", phase_multi_device, frame, card)
+    rel_res = phase("release", phase_release, frame, card)
     return (kern, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res, feather_res,
-            train_kern, train_res, mc_res, batch_res, md_res)
+            train_kern, train_res, mc_res, batch_res, md_res, rel_res)
 
 
 def main(argv=None) -> int:
@@ -2705,7 +2944,7 @@ def main(argv=None) -> int:
         holdouts = pool.submit(_holdout_frames, FRAME_H, FRAME_W)
         res = _run_phases(phase, card, holdouts, args.profile)
     kern, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res, feather_res, \
-        train_kern, train_res, mc_res, batch_res, md_res = res
+        train_kern, train_res, mc_res, batch_res, md_res, rel_res = res
     log("[time] " + ", ".join(f"{k} {v:.0f}" for k, v in seconds.items()) + " s")
 
     group, tile, train_fwd = kern["group"], kern["tile"], kern["train"]
@@ -2740,6 +2979,12 @@ def main(argv=None) -> int:
                 md_res["batch"]["launches"],
             f"kpn-hq train step, each of {DP_RANKS} data-parallel ranks":
                 md_res["dp_step"]["launches_per_step"]["kpn_apply"],
+            "kpn TF golden (k=3, 2 slots)": rel_res["goldens"]["kpn"]["kpn_apply"],
+            "kpn-hq frame with TF round-tripped weights": rel_res["tf"]["kpn_apply"],
+            "kpn-hq recipe step, teacher flagship-hq":
+                rel_res["recipe"]["teacher"]["launches_per_step"]["kpn_apply"],
+            "kpn-hq recipe validation batch": rel_res["recipe"]["teacher"]["launches_per_val_batch"],
+            "kpn-hq cli frame with the exported npz": rel_res["export"]["kpn_apply"],
         },
     )]
     for entry, fn in BWD_ENTRIES.items():
@@ -2760,6 +3005,8 @@ def main(argv=None) -> int:
                 "kpn-hq train step on device batches": batch_res["launches"][f"kpn_apply_{entry}"],
                 f"kpn-hq train step, each of {DP_RANKS} data-parallel ranks":
                     md_res["dp_step"]["launches_per_step"][f"kpn_apply_{entry}"],
+                "kpn-hq recipe step, teacher flagship-hq":
+                    rel_res["recipe"]["teacher"]["launches_per_step"][f"kpn_apply_{entry}"],
             },
             moved32=t["moved32"], moved64=t["moved64"], moved32_bound_ms=t["moved32_bound_ms"],
             moved64_bound_ms=t["moved64_bound_ms"], buffer_sets=t["buffer_sets"],
@@ -2820,6 +3067,13 @@ def main(argv=None) -> int:
             b4["peak_gib"], md_res["group"]["ms"], md_res["batch"]["ms_per_frame"],
             md_res["dp_step"]["allreduce_ms"], md_res["dp_step"]["backend"],
             md_res["dp_cli"]["ms"]))
+    rt, rp = rel_res["recipe"]["teacher"], rel_res["recipe"]["plain"]
+    log("[summary] release: goldens max|d| " + ", ".join(
+        f"{f} {r['max_abs_dev']:.2e}" for f, r in rel_res["goldens"].items())
+        + "; kpn-hq TF checkpoint {} bytes, write {:.3f} s, read {:.3f} s; recipe {:.2f} ms/step "
+        "with the teacher, {:.2f} without, peak {:.2f} GiB; export {} bytes, gain {:.4f} dB".format(
+            rel_res["tf"]["bytes"], rel_res["tf"]["write_s"], rel_res["tf"]["read_s"], rt["ms"],
+            rp["ms"], rt["peak_gib"], rel_res["export"]["bytes"], rel_res["export"]["gain_db"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],

@@ -79,18 +79,27 @@ class CheckpointManager:
             shutil.rmtree(self._dir / str(old))
         return True
 
-    def restore_latest(self, template: TrainState) -> Optional[Tuple[TrainState, Dict[str, Any]]]:
-        """Load the newest checkpoint into `template` (in place, onto its
-        device), or None when there is none."""
+    def read_latest(self, map_location=None
+                    ) -> Optional[Tuple[Dict[str, Any], Dict[str, Any]]]:
+        """(the TrainState's state_dict, extra) of the newest checkpoint,
+        loaded onto `map_location`, or None when there is none."""
         step = self.latest_step()
         if step is None:
             return None
         d = self._dir / str(step)
-        dev = next(template.model.parameters()).device
-        template.load_state_dict(torch.load(d / "state.pt", map_location=dev, weights_only=True))
+        state = torch.load(d / "state.pt", map_location=map_location, weights_only=True)
         extra_path = d / "extra.json"
         extra = json.loads(extra_path.read_text()) if extra_path.exists() else {}
-        return template, extra
+        return state, extra
+
+    def restore_latest(self, template: TrainState) -> Optional[Tuple[TrainState, Dict[str, Any]]]:
+        """Load the newest checkpoint into `template` (in place, onto its
+        device), or None when there is none."""
+        got = self.read_latest(map_location=next(template.model.parameters()).device)
+        if got is None:
+            return None
+        template.load_state_dict(got[0])
+        return template, got[1]
 
     def wait(self) -> None:
         """Saves are synchronous: nothing is pending."""

@@ -3,7 +3,8 @@
 The release format (weights/*.npz) is a flat npz of '/'-joined Flax param
 paths in float16; `load_release_params` reads it as the JAX package's
 weights_io does (fp16 on disk, fp32 in memory) and returns the same
-nested {'params': ...} tree of numpy arrays.
+nested {'params': ...} tree of numpy arrays, and `save_release_params`
+writes it (tools/export_release_weights.py).
 
 `state_dict_from_params` turns such a tree — from a release file or from
 the JAX package's own `init_params`, as numpy — into the port's
@@ -50,6 +51,14 @@ def load_release_params(path) -> Dict[str, Any]:
     with np.load(path) as z:
         flat = {k: z[k].astype(np.float32) for k in z.files}
     return unflatten(flat)
+
+
+def save_release_params(path, params: Mapping[str, Any], dtype=np.float16) -> None:
+    """{'params': ...} tree of numpy arrays -> the release npz: flat
+    '/'-joined keys, `dtype` (fp16) values, compressed; the keys, shapes and
+    dtype the JAX package's save_release_params writes."""
+    flat = {k: np.asarray(v).astype(dtype) for k, v in flatten(params).items()}
+    np.savez_compressed(path, **flat)
 
 
 def state_dict_from_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -591,3 +591,76 @@ def test_two_gloo_ranks_on_the_card_match_the_one_rank_step(cuda, tmp_path):
         np.testing.assert_array_equal(res[1]["state"][k], v, err_msg=k)
         if k.startswith(("params/", "ema/")):
             np.testing.assert_allclose(v, want[k], rtol=0, atol=2e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("fam", ["kpn", "multiscale", "tiramisu", "unet"])
+def test_tf_goldens_hold_on_the_card(cuda, fam):
+    """The JAX package's frozen TF checkpoints, read without TensorFlow and
+    forwarded on the card in fp32: the kpn family's 3x3, 2-slot head
+    launches the filter apply once a slot."""
+    from deepdenoiser_tpu_torch.compat import goldens
+
+    kpn_apply.reset_launches()
+    assert goldens.check(fam, device=cuda) <= goldens.ATOL
+    assert kpn_apply.launches == (2 if fam == "kpn" else 0)
+
+
+def test_tf_bundle_round_trip_of_release_weights_on_the_card(cuda, tmp_path):
+    """kpn-hq's release weights through the port's TF writer and reader are
+    bit-equal, and so is the model's output on the card (8 launches each)."""
+    from deepdenoiser_tpu_torch.compat import tf_checkpoint as tfc
+    from deepdenoiser_tpu_torch.models import factory
+
+    cfg = config.validate_channels(config.PRESETS["kpn-hq"]).model
+    params = weights_io.load_release_params(REPO / "weights" / "kpn_hq_ema_f16.npz")
+    tfc.export_checkpoint(params, cfg, tmp_path / "model.ckpt")
+    back = tfc.import_checkpoint(tmp_path / "model.ckpt", cfg)
+    want = weights_io.flatten(params)
+    assert sorted(weights_io.flatten(back)) == sorted(want)
+    for k, v in weights_io.flatten(back).items():
+        assert v.tobytes() == want[k].tobytes(), k
+    x = torch.rand((1, 64, 96, cfg.in_channels), generator=torch.Generator().manual_seed(0))
+    outs = []
+    for tree in (params, back):
+        model = factory.build_model(cfg)
+        weights_io.load_into(model, tree)
+        kpn_apply.reset_launches()
+        with torch.no_grad():
+            outs.append(model.to(cuda).eval()(x.to(cuda)))
+        torch.cuda.synchronize()
+        assert kpn_apply.launches == 8
+    assert torch.equal(outs[0], outs[1]) and torch.isfinite(outs[0]).all()
+
+
+def test_recipe_on_the_card_launches_the_kernels_in_its_steps_and_validation(cuda, tmp_path,
+                                                                            monkeypatch):
+    """kpn-hq through the port's recipe at a small crop, with --init-from and
+    a teacher: 8 filter-apply and 8 d_w launches a step, 8 filter-apply
+    launches a validation batch, counted apart."""
+    from deepdenoiser_tpu_torch.tools import pretrain_flagship
+    from deepdenoiser_tpu_torch.training import train as train_lib
+
+    in_eval = []
+    make_eval = train_lib.make_eval_step
+
+    def counted(*a, **kw):
+        fn = make_eval(*a, **kw)
+
+        def run(*args):
+            before = kpn_apply.launches
+            out = fn(*args)
+            in_eval.append(kpn_apply.launches - before)
+            return out
+        return run
+
+    monkeypatch.setattr(train_lib, "make_eval_step", counted)
+    kpn_apply.reset_launches()
+    res = pretrain_flagship.main([
+        "--model", "kpn-hq", "--crop", "32", "--batch", "2", "--steps", "2", "--val-every", "2",
+        "--log-every", "1", "--out", str(tmp_path / "run"), "--teacher", "flagship-hq",
+        "--init-from", str(REPO / "weights" / "kpn_hq_ema_f16.npz")])
+    assert res == 0
+    assert in_eval == [8] * pretrain_flagship.VAL_BATCHES
+    assert kpn_apply.launches - sum(in_eval) == 2 * 8
+    assert kpn_apply.bwd_weights_launches == 2 * 8 and kpn_apply.bwd_noisy_launches == 0
+    assert (tmp_path / "run-best" / "2" / "extra.json").is_file()

@@ -24,9 +24,9 @@ from deepdenoiser_tpu_torch.parallel import mesh
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "deepdenoiser_tpu_torch"
-# the JAX stack, and what its training path uses that the card's machine
-# lacks (Grain, clu, PIL)
-FORBIDDEN_TOP = {"jax", "jaxlib", "flax", "optax", "orbax", "grain", "clu", "PIL"}
+# the JAX stack, and what its training path and TF-checkpoint compat use
+# that the card's machine lacks (Grain, clu, PIL, TensorFlow)
+FORBIDDEN_TOP = {"jax", "jaxlib", "flax", "optax", "orbax", "grain", "clu", "PIL", "tensorflow"}
 
 
 def _forbidden(module: str) -> bool:
@@ -41,6 +41,7 @@ def test_forbidden_name_match_is_not_fooled_by_the_prefix():
     assert _forbidden("deepdenoiser_tpu") and _forbidden("deepdenoiser_tpu.models.kpn")
     assert _forbidden("jax.numpy") and _forbidden("flax.linen")
     assert _forbidden("grain.python") and _forbidden("PIL.Image") and _forbidden("clu")
+    assert _forbidden("tensorflow") and _forbidden("tensorflow.compat.v1")
     assert not _forbidden("deepdenoiser_tpu_torch")
     assert not _forbidden("deepdenoiser_tpu_torch.models.kpn")
     assert not _forbidden("jaxtyping_like")
@@ -60,7 +61,9 @@ def test_importing_every_port_module_leaves_jax_out():
     for new in ("models.tiramisu", "models.multiscale", "inference.sequence", "inference.tiled",
                 "data.prepare", "ops.metrics", "cli", "data.mc_tracer", "data.synthetic_device",
                 "data.synthetic_holdout", "data.synthetic_spheres", "data.synthetic_boxes",
-                "data.draws", "parallel.mesh", "parallel.halo", "parallel.dist"):
+                "data.draws", "parallel.mesh", "parallel.halo", "parallel.dist",
+                "compat.tensor_bundle", "compat.tf_checkpoint", "compat.goldens",
+                "tools.export_release_weights", "tools.verify_parity", "tools.pretrain_flagship"):
         assert f"deepdenoiser_tpu_torch.{new}" in mods
     code = (
         "import importlib, json, sys\n"
