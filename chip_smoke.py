@@ -18,7 +18,13 @@ non-zero:
   2. build       nvcc every csrc/*.cu (ops/_build.py), ptxas report
   3. kernels     the KPN filter apply vs its plain version at the paths'
                  shapes, the train step's batch among them (max|d| <= 1e-5
-                 + 1e-5*|ref|); the five per-pass
+                 + 1e-5*|ref|), with the weights in the head's contiguous
+                 (N,H,W,k²) layout (and one planar view), ragged, one-row and
+                 odd-width frames, two launches bitwise equal; at each path
+                 shape its time beside useful and moved bytes, the bound,
+                 tile rows and resident blocks per SM, the plain version's
+                 time, and at the training batch a launch that only writes
+                 the output (the floor of a launch that size); the five per-pass
                  fused-ingest kernels and the whole-pixel group encode vs
                  theirs at 1080p, batched and ragged shapes, for every aux
                  subset (1e-6 + 1e-6*|ref|); device times by CUDA-graph
@@ -61,7 +67,8 @@ non-zero:
                  step hands over: all 8 slot views (channels 3s..3s+2) of
                  (16,96,96,24) signal and gradient tensors, the joint 1080p
                  plane, k=3, C=1 and C=4, ragged and one-row frames; two
-                 launches bitwise equal; device times by CUDA-graph replay at
+                 launches bitwise equal; the weights as the head hands them
+                 (contiguous (N,H,W,k²)); device times by CUDA-graph replay at
                  the training batch (slots 0 and 2, contiguous) and the plane
                  (slot 0, contiguous), useful bytes (the bound) and the bytes
                  of the 32 B sectors and 64 B blocks the views touch, resident
@@ -134,7 +141,8 @@ non-zero:
                  frame (gain > 0, 8 K1 launches)
   23. one JSON line {"kernels": [...]}; every phase's seconds on [time] lines
   (with --profile, the frame phases and the train steps also print device
-  time by kernel and the device's busy share, from torch.profiler)
+  time by kernel, every copy kernel's row and the device's busy share, from
+  torch.profiler)
   then the card's name and power limit as nvidia-smi prints them, and last
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -363,58 +371,82 @@ def phase_build() -> None:
             f"{spills} bytes spilled")
 
 
-def _kpn_inputs(shape, k, stack_channels, gen):
-    """noisy (N,H,W,C) and softmaxed weights (N,H,W,k²) on the card. With
-    stack_channels, as the pipeline hands them to the kernel: the noisy slot
-    is a 3-channel slice of the fp32 signal stack (24 channels in joint
-    mode, the 14-channel network input in group mode) and the weights a
-    view of planar (N,k²,H,W) softmax output."""
+def _kpn_inputs(shape, k, stack_channels, gen, planar=False):
+    """noisy (N,H,W,C) and softmaxed weights (N,H,W,k²) on the card, the
+    weights contiguous with the taps last, as the KPN head hands them to the
+    kernel. With stack_channels, the noisy slot is a 3-channel slice of the
+    fp32 signal stack (24 channels in joint mode, the 14-channel network
+    input in group mode). `planar`: the weights are instead a permuted view
+    of planar (N,k²,H,W) softmax output (correctness only)."""
     n, h, w, c = shape
     dev = "cuda"
     if stack_channels:
-        stack = torch.rand((n, h, w, stack_channels), generator=gen, device=dev)
-        noisy = stack[..., 3:6]
-        logits = torch.randn((n, k * k, h, w), generator=gen, device=dev)
-        weights = torch.softmax(logits, dim=1).permute(0, 2, 3, 1)
+        noisy = torch.rand((n, h, w, stack_channels), generator=gen, device=dev)[..., 3:6]
     else:
         noisy = torch.rand(shape, generator=gen, device=dev)
-        logits = torch.randn((n, h, w, k * k), generator=gen, device=dev)
-        weights = torch.softmax(logits, dim=-1)
-    return noisy, weights
+    if planar:
+        logits = torch.randn((n, k * k, h, w), generator=gen, device=dev)
+        return noisy, torch.softmax(logits, dim=1).permute(0, 2, 3, 1)
+    logits = torch.randn((n, h, w, k * k), generator=gen, device=dev)
+    return noisy, torch.softmax(logits, dim=-1)
+
+
+def _moved_bytes(t: torch.Tensor, granule: int) -> int:
+    """Bytes of the `granule`-byte blocks of device memory that a view's
+    elements lie in; a contiguous tensor's own bytes, rounded up."""
+    if t.is_contiguous():
+        return -(-t.numel() * t.element_size() // granule) * granule
+    return _touched_bytes(t, granule)
 
 
 def phase_kernels(card: dict) -> dict:
-    """The KPN filter apply against its plain version. Returns the timing at
-    the joint path's shape, with the group path's under "group", the
-    tiled frame's tile batch under "tile" and the kpn-hq train step's
-    batch under "train"."""
+    """The KPN filter apply against its plain version, at the head's layout
+    (and one planar view). Returns the timing at the joint path's shape,
+    with the group path's under "group", the tiled frame's tile batch under
+    "tile" and the kpn-hq train step's batch under "train"."""
     from deepdenoiser_tpu_torch.models import kpn
     from deepdenoiser_tpu_torch.ops import kpn_apply
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    # (shape, k, channels of the stack the slot is cut from, path it is timed for)
-    cases = [((1, PLANE_H, PLANE_W, 3), 5, 24, "joint"), ((4, PLANE_H, PLANE_W, 3), 5, 14, "group"),
-             ((TILE_BATCH, NET_TILE, NET_TILE, 3), 5, 24, "tile"),  # a chunk of a tiled joint frame
-             ((TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3), 5, 24, "train"),  # the kpn-hq train step's
-             ((4, 260, 390, 3), 3, 0, None), ((1, 37, 53, 3), 5, 0, None),
-             ((1, 64, 64, 3), 3, 8, None)]  # the kpn TF golden's slot 1 (phase 22)
+    # (shape, k, channels of the stack the slot is cut from, path it is timed
+    # for, planar weights); W*k*k not a multiple of 4 (53, 45, 21, 9 wide)
+    # takes the kernel's shifted weight rows
+    cases = [((1, PLANE_H, PLANE_W, 3), 5, 24, "joint", False),
+             ((4, PLANE_H, PLANE_W, 3), 5, 14, "group", False),
+             ((TILE_BATCH, NET_TILE, NET_TILE, 3), 5, 24, "tile", False),  # a tiled joint chunk
+             ((TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3), 5, 24, "train", False),  # the train step's
+             ((4, 260, 390, 3), 3, 0, None, False), ((1, 37, 53, 3), 5, 0, None, False),
+             ((2, 1, 45, 3), 5, 24, None, False), ((3, 19, 21, 1), 3, 0, None, False),
+             ((2, 23, 9, 4), 5, 0, None, False),
+             ((1, 64, 64, 3), 3, 8, None, False),  # the kpn TF golden's slot 1 (phase 22)
+             ((2, 40, 72, 3), 5, 24, None, True)]  # planar weights: still taken
     worst = 0.0
     timings = {}
-    for shape, k, stack_channels, path in cases:
-        noisy, weights = _kpn_inputs(shape, k, stack_channels, gen)
+    resident = {rows: kpn_apply.resident_blocks("forward", 5, 3, rows) for rows in (8, 4)}
+    regs = {rows: _ptxas_registers("kpn_apply", f"kpn_apply_kernelILi5ELi3ELi{rows}E")
+            for rows in (8, 4)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log("[kernels] kpn_apply resident blocks per SM at k=5, C=3 (occupancy API): " + ", ".join(
+        f"32x{rows} tiles {resident[rows]} ({regs[rows]} registers)" for rows in (8, 4))
+        + f"; {sms} SMs")
+    for shape, k, stack_channels, path, planar in cases:
+        noisy, weights = _kpn_inputs(shape, k, stack_channels, gen, planar)
         got = kpn_apply.apply_cuda(noisy, weights, k)
+        again = kpn_apply.apply_cuda(noisy, weights, k)
         ref = kpn.apply_per_pixel_kernels(noisy, weights, k)
         torch.cuda.synchronize()
         err = (got - ref).abs()
         bad = int((err > TOL_ABS + TOL_REL * ref.abs()).sum())
         max_err = float(err.max())
         worst = max(worst, max_err)
-        log(f"[kernels] kpn_apply {shape} k={k} slot of a {stack_channels or 3}-channel stack: "
-            f"max|d|={max_err:.3e} over tolerance={bad}")
+        log(f"[kernels] kpn_apply {shape} k={k} slot of a {stack_channels or 3}-channel stack, "
+            f"{'planar' if planar else 'NHWC'} weights: max|d|={max_err:.3e} over tolerance={bad}")
         if bad or not torch.isfinite(got).all():
             raise AssertionError(f"kpn_apply disagrees with its plain version at {shape} k={k}")
-        del got, ref, err
+        if not torch.equal(got, again):
+            raise AssertionError(f"kpn_apply: two launches differ at {shape} k={k}")
+        del got, again, ref, err
         if path:  # a path's shape
             n, h, w, c = shape
             if path == "train":
@@ -425,13 +457,22 @@ def phase_kernels(card: dict) -> dict:
                 kernel_ms = graph_ms([lambda b=b: kpn_apply.apply_cuda(*b, k) for b in bufs])
                 plain_ms = graph_ms([lambda b=b: kpn.apply_per_pixel_kernels(*b, k) for b in bufs],
                                     replays=3)
-                del bufs
+                # the floor of a launch this size: one that only writes the
+                # (N,H,W,C) output, timed the same way
+                outs = [torch.empty(shape, device="cuda") for _ in bufs]
+                write_ms = graph_ms([lambda o=o: o.zero_() for o in outs])
+                del bufs, outs
             else:
                 kernel_ms = cuda_ms(lambda: kpn_apply.apply_cuda(noisy, weights, k), iters=200 // n)
                 plain_ms = cuda_ms(lambda: kpn.apply_per_pixel_kernels(noisy, weights, k),
                                    iters=20 // n)
+                write_ms = None
             px = n * h * w
+            rows = kpn_apply.tile_rows(shape, k)
+            blocks = n * -(-h // rows) * -(-w // 32)
             nbytes = px * (c + k * k + c) * 4  # each input read once, output written once
+            moved = {g: _moved_bytes(noisy, g) + _moved_bytes(weights, g) + px * c * 4
+                     for g in (32, 64)}
             flops = px * c * k * k * 2
             bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
             ops_ms = flops / H100_FP32_FLOP_PER_S * 1e3
@@ -439,14 +480,24 @@ def phase_kernels(card: dict) -> dict:
                 "shape": list(shape), "k": k, "ms": kernel_ms, "plain_ms": plain_ms,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "bytes": nbytes, "flops": flops,
+                "bytes": nbytes, "flops": flops, "moved32": moved[32], "moved64": moved[64],
+                "moved32_bound_ms": moved[32] / H100_BYTES_PER_S * 1e3,
+                "moved64_bound_ms": moved[64] / H100_BYTES_PER_S * 1e3,
+                "tile_rows": rows, "blocks": blocks, "resident_blocks_per_sm": resident[rows],
+                "write_only_ms": write_ms,
             }
-            log(f"[kernels] kpn_apply {shape} k={k} ({path} path): {kernel_ms * 1e3:.1f} us/launch "
-                f"(bound {timing['bound_ms'] * 1e3:.1f} us by {timing['bound_by']}: "
-                f"{nbytes / 1e6:.1f} MB at 3.35 TB/s = {bytes_ms * 1e3:.1f} us, "
-                f"{flops / 1e9:.3f} GFLOP at 67 TFLOP/s = {ops_ms * 1e3:.1f} us; "
-                f"{nbytes / (kernel_ms * 1e-3) / 1e12:.2f} TB/s achieved), "
-                f"plain version {plain_ms * 1e3:.1f} us | {card['smi']}")
+            log(f"[kernels] kpn_apply {shape} k={k} ({path} path): {kernel_ms * 1e3:.1f} us/launch, "
+                f"{100 * timing['bound_ms'] / kernel_ms:.0f}% of the bound "
+                f"{timing['bound_ms'] * 1e3:.1f} us by {timing['bound_by']} ({nbytes / 1e6:.1f} MB "
+                f"useful at 3.35 TB/s, {flops / 1e9:.3f} GFLOP at 67 TFLOP/s = "
+                f"{ops_ms * 1e3:.1f} us; {nbytes / (kernel_ms * 1e-3) / 1e12:.2f} TB/s useful); "
+                f"moved {moved[32] / 1e6:.1f} MB in 32 B sectors = "
+                f"{timing['moved32_bound_ms'] * 1e3:.1f} us, {moved[64] / 1e6:.1f} MB in 64 B "
+                f"blocks = {timing['moved64_bound_ms'] * 1e3:.1f} us; 32x{rows} tiles, {blocks} "
+                f"blocks, {resident[rows]} resident/SM ({blocks / (resident[rows] * sms):.2f} "
+                f"waves); plain version {plain_ms * 1e3:.1f} us"
+                + (f"; a launch writing only the output {write_ms * 1e3:.1f} us" if write_ms else "")
+                + f" | {card['smi']}")
         del noisy, weights
     torch.cuda.empty_cache()
     return {**timings["joint"], "group": timings["group"], "tile": timings["tile"],
@@ -750,6 +801,14 @@ def profile_frames(preset: str, run, card: dict, frames: int = 3, top: int = 12)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[{preset}]   {e.self_device_time_total / frames / 1e3:8.3f} ms/frame "
             f"{e.count // frames:4d}x  {e.key[:110]}")
+    # every copy on the device, each dtype and layout its own row (a strided
+    # copy of one dtype may run as a 2-D memcpy, not as a kernel)
+    copies = [e for e in kernels if "direct_copy" in e.key or "Memcpy" in e.key]
+    for e in sorted(copies, key=lambda e: -e.self_device_time_total):
+        log(f"[{preset}]   copy {e.self_device_time_total / frames / 1e3:8.3f} ms/frame "
+            f"{e.count / frames:6.2f}x  {e.key[:110]}")
+    log(f"[{preset}]   copies in all: {sum(e.self_device_time_total for e in copies) / frames / 1e3:.3f} "
+        f"ms/frame, {sum(e.count for e in copies) / frames:.2f} launches/frame")
 
 
 def _frame_on_card(frame: dict):
@@ -1501,7 +1560,7 @@ def _bwd_work(entry: str, noisy, weights, g, k) -> dict:
     px = n * h * w
     ins, out = ((noisy, g), px * k * k * 4) if entry == "bwd_weights" else ((g, weights), px * c * 4)
     return {"bytes": px * (2 * c + k * k) * 4, "flops": px * c * k * k * 2,
-            **{f"moved{b}": sum(_touched_bytes(t, b) for t in ins) + out for b in (32, 64)}}
+            **{f"moved{b}": sum(_moved_bytes(t, b) for t in ins) + out for b in (32, 64)}}
 
 
 def _bwd_inputs(shape, k, gen, slot=None, stack=BWD_STACK):
@@ -1511,7 +1570,7 @@ def _bwd_inputs(shape, k, gen, slot=None, stack=BWD_STACK):
     signal runs; in group mode the signal is x[..., :6] of the 14-channel
     input) and g the same channels of the head output's (N,H,W,stack)
     gradient (torch.cat's backward hands out that slice). Without: (N,H,W,C)
-    tensors of their own. The weights: a permuted view of planar softmax
+    tensors of their own. The weights: contiguous (N,H,W,k²) softmax
     output, as the head passes them."""
     n, h, w, c = shape
     dev = "cuda"
@@ -1521,8 +1580,8 @@ def _bwd_inputs(shape, k, gen, slot=None, stack=BWD_STACK):
     else:
         noisy = torch.rand((n, h, w, stack), generator=gen, device=dev)[..., c * slot : c * (slot + 1)]
         g = torch.randn((n, h, w, stack), generator=gen, device=dev)[..., c * slot : c * (slot + 1)]
-    logits = torch.randn((n, k * k, h, w), generator=gen, device=dev)
-    return noisy, torch.softmax(logits, dim=1).permute(0, 2, 3, 1), g
+    logits = torch.randn((n, h, w, k * k), generator=gen, device=dev)
+    return noisy, torch.softmax(logits, dim=-1), g
 
 
 def _ptxas_registers(source: str, fragment: str):
@@ -2963,6 +3022,10 @@ def main(argv=None) -> int:
         launches_train_eval=train_res["k1_eval_launches"],
         train_shape=train_fwd["shape"], train_ms=train_fwd["ms"],
         train_plain_ms=train_fwd["plain_ms"], train_bound_ms=train_fwd["bound_ms"],
+        by_shape={path: {key: t[key] for key in (
+            "shape", "ms", "plain_ms", "bound_ms", "moved32_bound_ms", "moved64_bound_ms",
+            "tile_rows", "resident_blocks_per_sm", "write_only_ms")}
+            for path, t in (("joint", kern), ("group", group), ("tile", tile), ("train", train_fwd))},
         launches_by_path={
             "kpn-hq cli frame": kpn_res["cli_launches"],
             "flagship-max cli frame": max_res["cli_launches"]["kpn_apply"],

@@ -31,10 +31,12 @@
 // 5; d_noisy 64 + 100 + 12 = 176 B. No per-slot kernel can move less.
 //
 // Both kernels take every input with element strides (noisy and g as those
-// slot views, w as the permuted view of the head's planar softmax), so
-// nothing is copied before a launch. C (1..4) and k (3, 5) are template
-// parameters, so staging has compile-time divisors. Staging copies with
-// cp.async (4 bytes, zero-filled outside the frame), all of a block's
+// slot views, w as the head's (N, H, W, k*k) softmax), so nothing is
+// copied before a launch. The cp.async helpers, the window staging and the
+// dispatch of k and c live in kpn_stage.cuh, shared with the forward.
+// C (1..4) and k (3, 5) are template parameters, so staging has
+// compile-time divisors. Staging copies with cp.async (4 bytes,
+// zero-filled outside the frame), all of a block's
 // copies issued before the first is waited for; a row of the window is
 // walked pixel-major, channel-minor, so one warp instruction reads the
 // channels of about 11 neighbouring pixels (a few cache lines at a 96 B
@@ -50,10 +52,11 @@
 //     per tap, its 4 dot products over channels (summed in channel order)
 //     as one 16-byte store into the planar (N, k*k, H, W) result; a ragged
 //     edge or a width that is not a multiple of 4 takes scalar stores. The
-//     wrapper returns the (N, H, W, k*k) permuted view, which the softmax's
-//     backward takes without a copy. No streaming hint on the stores: that
-//     backward reads d_w next, from L2 where it can. 20 blocks are resident
-//     per SM at k=5, C=3 (48 registers; NVIDIA H100 80GB HBM3), so the
+//     wrapper returns the (N, H, W, k*k) permuted view; the backward of
+//     the head's softmax over the last axis makes it contiguous, one
+//     transposing copy a slot. No streaming hint on the stores: that copy
+//     reads d_w next, from L2 where it can. 20 blocks are resident per SM
+//     at k=5, C=3 (48 registers; NVIDIA H100 80GB HBM3), so the
 //     training batch's 576 blocks are all resident at once, 4-5 to an SM.
 //     Capping the registers to hold more blocks measured slower.
 //
@@ -78,9 +81,14 @@
 
 #include <cuda_runtime.h>
 
-#include <type_traits>
+#include "kpn_stage.cuh"
 
 namespace {
+
+using kpn::cp_async_commit;
+using kpn::cp_async_wait;
+using kpn::dispatch;
+using kpn::stage;
 
 constexpr int BW = 32;                       // tile width, pixels
 constexpr int DW_BH = 8;                     // d_w: tile height
@@ -89,64 +97,6 @@ constexpr int DW_THREADS = BW / QX * DW_BH;  // 64
 constexpr int DN_BH = 4;                     // d_noisy: tile height
 constexpr int DN_THREADS = BW * DN_BH;       // 128
 constexpr int DN_MIN_BLOCKS = 10;            // d_noisy: resident blocks its launch bounds ask for
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 4-byte asynchronous copy to shared memory; zero-filled when !in_frame
-// (src-size 0: nothing is read, `src` only has to be a valid address).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in_frame) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(in_frame ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Issue the copies of the ROWS x COLS x C window whose top-left frame pixel
-// is (gy0, gx0) into planar [C][ROWS][ROW] shared memory, zero outside the
-// frame; NT threads, thread `tid`. A window row is COLS*C elements in
-// pixel-major, channel-minor order: a thread's columns and channels (and
-// so its offsets within a row) are the same in every row, and the 32
-// copies of one warp instruction read about 11 neighbouring pixels' C
-// channels, a few cache lines even at a 96 B pixel stride.
-template <int C, int NT, int ROWS, int COLS, int ROW>
-__device__ __forceinline__ void stage(float* sm, const float* src, int tid, int gy0, int gx0,
-                                      int h, int w, long long sy, long long sx, long long sc) {
-  constexpr int RE = COLS * C;
-  constexpr int M = (RE + NT - 1) / NT;  // elements of a row per thread
-  long long off[M];
-  int dst[M];
-  bool ok[M];
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    const int e = tid + m * NT;
-    const int col = e / C;
-    const int c = e - col * C;
-    const int gx = gx0 + col;
-    off[m] = gx * sx + c * sc;
-    dst[m] = c * ROWS * ROW + col;
-    ok[m] = e < RE && gx >= 0 && gx < w;
-    if (e >= RE) dst[m] = -1;
-  }
-#pragma unroll 2
-  for (int r = 0; r < ROWS; ++r) {
-    const int gy = gy0 + r;
-    const bool row_in = gy >= 0 && gy < h;
-    const float* rp = src + (row_in ? gy * sy : 0);
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      if (dst[m] < 0) continue;
-      const bool in = row_in && ok[m];
-      cp_async4(sm + dst[m] + r * ROW, in ? rp + off[m] : src, in);
-    }
-  }
-}
 
 // ---------------------------------------------------------------- d_w ----
 
@@ -328,27 +278,6 @@ cudaError_t resident(int which, int* blocks) {
                           blocks, kpn_bwd_weights_kernel<K, C>, DW_THREADS, 0)
                     : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                           blocks, kpn_bwd_noisy_kernel<K, C>, DN_THREADS, 0);
-}
-
-template <int V>
-using Int = std::integral_constant<int, V>;
-
-// Calls f(Int<K>, Int<C>) for runtime k in {3, 5} and c in 1..4;
-// cudaErrorInvalidValue for any other.
-template <typename F>
-cudaError_t dispatch(int k, int c, F&& f) {
-#define KPN_BWD_C(K)                          \
-  switch (c) {                                \
-    case 1: return f(Int<K>{}, Int<1>{});     \
-    case 2: return f(Int<K>{}, Int<2>{});     \
-    case 3: return f(Int<K>{}, Int<3>{});     \
-    case 4: return f(Int<K>{}, Int<4>{});     \
-    default: return cudaErrorInvalidValue;    \
-  }
-  if (k == 3) KPN_BWD_C(3)
-  if (k == 5) KPN_BWD_C(5)
-#undef KPN_BWD_C
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace

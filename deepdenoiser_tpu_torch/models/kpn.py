@@ -108,16 +108,16 @@ class KernelPredictionHead(nn.Module):
             taus = self.TEMP_MAX * torch.sigmoid(self.kernel_temp.float())
         outs = []
         for s in range(self.n_slots):
-            # planar (N, k², H, W) logits: the softmax reduces over a
-            # contiguous-per-tap axis, and the kernel's weight reads
-            # (neighbouring x) are coalesced
-            logits = feats[..., s * k2 : (s + 1) * k2].permute(0, 3, 1, 2).to(
-                torch.float32, memory_format=torch.contiguous_format
-            )
+            # the slot's logits as the JAX head takes them, (N,H,W,k²) fp32
+            # with the taps last: a strided slice of feats, which the RMS
+            # norm's elementwise ops read in place. The softmax's output is
+            # contiguous (N,H,W,k²), the layout the filter-apply kernel
+            # stages in 16-byte copies; nothing is transposed or gathered.
+            logits = feats[..., s * k2 : (s + 1) * k2].float()
             if self.logit_norm:
-                rms = torch.sqrt(torch.mean(logits * logits, dim=1, keepdim=True) + 1e-8)
+                rms = torch.sqrt(torch.mean(logits * logits, dim=-1, keepdim=True) + 1e-8)
                 logits = logits / rms * taus[s]
-            weights = torch.softmax(logits, dim=1).permute(0, 2, 3, 1)
+            weights = torch.softmax(logits, dim=-1)
             outs.append(
                 self.filter_apply(signal[..., 3 * s : 3 * (s + 1)].float(), weights, self.kernel_size)
             )

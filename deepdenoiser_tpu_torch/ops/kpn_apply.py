@@ -10,12 +10,14 @@ notes are in the CUDA sources.
 
 `apply_per_pixel_kernels(noisy, weights, k)` keeps the JAX signature:
 noisy (N,H,W,C) and per-pixel softmaxed weights (N,H,W,k²), both fp32,
--> (N,H,W,C) fp32. It goes through `KpnApply`, a torch.autograd.Function:
-tensors on the CPU take the plain PyTorch versions (models/kpn.py) forward
-and backward and count no launch; tensors on the card launch the kernels
-or raise — there is no fallback. The backward computes only the gradients
-autograd asks for (`ctx.needs_input_grad`): in training the signal is a
-slice of the network input, so only the weight gradient is launched.
+-> (N,H,W,C) fp32. The forward kernel is built for the head's layout, the
+weights contiguous with the taps last; other strides work, at a cost. It
+goes through `KpnApply`, a torch.autograd.Function: tensors on the CPU
+take the plain PyTorch versions (models/kpn.py) forward and backward and
+count no launch; tensors on the card launch the kernels or raise — there
+is no fallback. The backward computes only the gradients autograd asks
+for (`ctx.needs_input_grad`): in training the signal is a slice of the
+network input, so only the weight gradient is launched.
 """
 
 from __future__ import annotations
@@ -61,16 +63,34 @@ def _kernel(lib: str, name: str):
 BWD_ENTRIES = ("bwd_weights", "bwd_noisy")
 
 
-def resident_blocks(entry: str, kernel_size: int, channels: int) -> int:
-    """Blocks of a backward kernel ("bwd_weights" or "bwd_noisy") that one
+def resident_blocks(entry: str, kernel_size: int, channels: int, tile_rows: int = 8) -> int:
+    """Blocks of a kernel ("forward", "bwd_weights" or "bwd_noisy") that one
     SM of the current device holds at once, from the occupancy API (the
-    registers and shared memory that ptxas gave the kernel)."""
-    fn = _build.load("kpn_apply_bwd").kpn_apply_bwd_resident_blocks
-    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
-    blocks = fn(BWD_ENTRIES.index(entry), kernel_size, channels)
+    registers and shared memory that ptxas gave the kernel); the forward's
+    for its 32 x `tile_rows` tiles (8 or 4)."""
+    if entry == "forward":
+        fn = _build.load("kpn_apply").kpn_apply_resident_blocks
+        args = (kernel_size, channels, tile_rows)
+    else:
+        fn = _build.load("kpn_apply_bwd").kpn_apply_bwd_resident_blocks
+        args = (BWD_ENTRIES.index(entry), kernel_size, channels)
+    fn.argtypes, fn.restype = [ctypes.c_int] * len(args), ctypes.c_int
+    blocks = fn(*args)
     if blocks < 1:
         raise RuntimeError(f"kpn_apply {entry}: occupancy query failed (cudaError {-blocks})")
     return blocks
+
+
+def tile_rows(shape, kernel_size: int) -> int:
+    """Rows of the tiles the forward kernel takes for an (N,H,W,C) launch on
+    the current device: 8, or 4 when all its 32x8 tiles fit in one wave."""
+    n, h, w, c = shape
+    fn = _build.load("kpn_apply").kpn_apply_tile_rows
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_int
+    rows = fn(n, h, w, c, kernel_size)
+    if rows < 1:
+        raise RuntimeError(f"kpn_apply: tile query failed (cudaError {-rows})")
+    return rows
 
 
 def apply_per_pixel_kernels(noisy: Tensor, weights: Tensor, kernel_size: int) -> Tensor:
@@ -154,7 +174,8 @@ def _w_strides(weights: Tensor) -> tuple:
 def apply_cuda(noisy: Tensor, weights: Tensor, kernel_size: int) -> Tensor:
     """Launch the forward kernel on the current stream; no synchronise.
     Inputs may be strided views (the noisy signal's channels must be
-    contiguous)."""
+    contiguous). The kernel picks its tiles from the launch's size
+    (`tile_rows()`)."""
     global launches
     k = kernel_size
     n, h, w, c = _check("kpn_apply", {"noisy": noisy, "weights": weights}, k)
@@ -171,8 +192,9 @@ def apply_cuda(noisy: Tensor, weights: Tensor, kernel_size: int) -> Tensor:
 
 
 def bwd_weights_cuda(noisy: Tensor, g: Tensor, kernel_size: int) -> Tensor:
-    """d_w (N,H,W,k²): a permuted view of the planar (N,k²,H,W) result.
-    Launches on the current stream; no synchronise."""
+    """d_w (N,H,W,k²): a permuted view of the planar (N,k²,H,W) result
+    (the softmax's backward makes it contiguous). Launches on the current
+    stream; no synchronise."""
     global bwd_weights_launches
     k = kernel_size
     n, h, w, c = _check("kpn_apply_bwd_weights", {"noisy": noisy, "g": g}, k)

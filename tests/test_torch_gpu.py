@@ -62,9 +62,10 @@ def test_kpn_kernel_matches_plain_version(cuda, shape, k):
     assert _within(got, want)
 
 
-def test_kpn_kernel_takes_the_heads_strided_views(cuda):
-    """The head hands the kernel a 3-channel slice of the 24-channel signal
-    stack and a permuted view of planar (N, k², H, W) softmax weights."""
+def test_kpn_kernel_still_takes_planar_weight_views(cuda):
+    """A 3-channel slice of the 24-channel signal stack and a permuted view
+    of planar (N, k², H, W) softmax weights: the kernel reads the weights
+    through their strides, element by element."""
     k = 5
     g = torch.Generator(device=cuda).manual_seed(1)
     noisy = torch.rand((1, 40, 72, 24), generator=g, device=cuda)[..., 9:12]
@@ -74,6 +75,83 @@ def test_kpn_kernel_takes_the_heads_strided_views(cuda):
     want = kpn.apply_per_pixel_kernels(noisy.contiguous(), weights.contiguous(), k)
     torch.cuda.synchronize()
     assert _within(got, want)
+
+
+def _head_layout_matches(noisy, weights, k):
+    """One launch against the plain version, and a second one bitwise equal
+    to the first."""
+    kpn_apply.reset_launches()
+    got = [kpn_apply.apply_per_pixel_kernels(noisy, weights, k) for _ in range(2)]
+    assert kpn_apply.launches == 2
+    want = kpn.apply_per_pixel_kernels(noisy, weights, k)
+    torch.cuda.synchronize()
+    assert got[0].shape == want.shape and got[0].is_contiguous()
+    assert _within(got[0], want)
+    assert torch.equal(got[0], got[1])
+
+
+@pytest.mark.parametrize("c", [1, 3, 4])
+@pytest.mark.parametrize("k", [3, 5])
+def test_kpn_kernel_at_the_heads_layout(cuda, k, c):
+    """The weights as the KPN head hands them: a contiguous (N,H,W,k²)
+    softmax, the taps last."""
+    noisy, weights = _inputs((2, 37, 60, c), k, cuda, seed=10 * k + c)
+    assert weights.is_contiguous()
+    _head_layout_matches(noisy, weights, k)
+
+
+@pytest.mark.parametrize("stack,slot", [(24, 0), (24, 1), (24, 2), (24, 5), (24, 7), (14, 0),
+                                        (14, 1), (8, 1)], ids=str)
+def test_kpn_kernel_reads_slot_views_of_the_signal(cuda, stack, slot):
+    """Slot s is channels 3s..3s+2 of the joint model's 24-channel signal,
+    of group mode's 14-channel input, or of an 8-channel stack (the kpn
+    TF golden's): 12 B at a 96, 56 or 32 B pixel stride."""
+    k = 5
+    g = torch.Generator(device=cuda).manual_seed(100 + stack + slot)
+    noisy = torch.rand((2, 30, 64, stack), generator=g, device=cuda)[..., 3 * slot : 3 * slot + 3]
+    weights = torch.softmax(torch.randn((2, 30, 64, k * k), generator=g, device=cuda), -1)
+    _head_layout_matches(noisy, weights, k)
+
+
+@pytest.mark.parametrize("shape,k,offset", [
+    ((1, 17, 37, 3), 5, 0),   # W*k² = 925: weight rows start at every 16 B misalignment
+    ((2, 9, 6, 3), 5, 0),     # W under one tile, W*k² not a multiple of 4
+    ((3, 19, 21, 1), 3, 0),   # k = 3, W*k² = 189
+    ((1, 1, 45, 3), 5, 0),    # one row
+    ((4, 1, 1, 3), 3, 0),     # one pixel a frame
+    ((2, 23, 9, 4), 5, 0),    # C = 4, ragged
+    ((1, 13, 40, 3), 5, 1),   # weights 4 B past a 16 B boundary: every row shifted
+    ((1, 13, 40, 2), 3, 3),   # C = 2, weights 12 B past
+], ids=str)
+def test_kpn_kernel_on_ragged_one_row_and_misaligned_frames(cuda, shape, k, offset):
+    noisy, weights = _inputs(shape, k, cuda, seed=sum(shape) + k)
+    if offset:  # the same values `offset` floats into a buffer: a contiguous, misaligned view
+        buf = torch.empty(weights.numel() + offset, device=cuda)
+        buf[offset:] = weights.flatten()
+        weights = buf[offset:].view(weights.shape)
+        assert weights.is_contiguous() and weights.data_ptr() % 16 == 4 * offset
+    _head_layout_matches(noisy, weights, k)
+
+
+@pytest.mark.parametrize("shape,rows", [((16, 96, 96, 3), 4), ((1, 64, 96, 3), 4),
+                                        ((2, 600, 800, 3), 8)], ids=str)
+def test_kpn_kernel_takes_both_tile_heights(cuda, shape, rows):
+    """A launch whose 32x8 tiles fit in one wave of the card (the training
+    batch) takes 32x4 tiles, a pixel a thread; a larger one 32x8 tiles,
+    two pixels a thread. Both agree with the plain version."""
+    assert kpn_apply.tile_rows(shape, 5) == rows
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    noisy = torch.rand((*shape[:3], 24), generator=g, device=cuda)[..., 3:6]
+    weights = torch.softmax(torch.randn((*shape[:3], 25), generator=g, device=cuda), -1)
+    _head_layout_matches(noisy, weights, 5)
+
+
+def test_kpn_kernel_fills_the_card_at_the_training_batch(cuda):
+    """At (16,96,96,3), k=5, the forward's 1152 blocks of 32x4 pixels are
+    all resident at once: no partial second wave."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert kpn_apply.tile_rows((16, 96, 96, 3), 5) == 4
+    assert kpn_apply.resident_blocks("forward", 5, 3, 4) * sms >= 16 * (96 // 4) * (96 // 32)
 
 
 def test_kpn_kernel_refuses_other_dtypes(cuda):
@@ -396,25 +474,25 @@ def test_kpn_backward_kernels_match_plain_version(cuda, shape, k):
 
 
 def test_kpn_autograd_on_the_card_launches_only_the_gradients_asked_for(cuda):
-    """The head's strided views, as in training: the signal is a slice of
-    the input (no gradient), the weights a permuted planar softmax."""
+    """The head's views, as in training: the signal is a slice of the input
+    (no gradient), the weights a contiguous softmax over the last axis."""
     k = 5
     gen = torch.Generator(device=cuda).manual_seed(5)
     stack = torch.rand((2, 24, 40, 24), generator=gen, device=cuda)
-    logits = torch.randn((2, k * k, 24, 40), generator=gen, device=cuda, requires_grad=True)
+    logits = torch.randn((2, 24, 40, k * k), generator=gen, device=cuda, requires_grad=True)
     g = torch.randn((2, 24, 40, 3), generator=gen, device=cuda)
     kpn_apply.reset_launches()
-    out = kpn_apply.apply_per_pixel_kernels(stack[..., 3:6], torch.softmax(logits, 1).permute(0, 2, 3, 1), k)
+    out = kpn_apply.apply_per_pixel_kernels(stack[..., 3:6], torch.softmax(logits, -1), k)
     (out * g).sum().backward()
     torch.cuda.synchronize()
     assert (kpn_apply.launches, kpn_apply.bwd_weights_launches, kpn_apply.bwd_noisy_launches) == (1, 1, 0)
     ref_logits = logits.detach().cpu().requires_grad_()
-    ref = kpn.apply_per_pixel_kernels(stack[..., 3:6].cpu(), torch.softmax(ref_logits, 1).permute(0, 2, 3, 1), k)
+    ref = kpn.apply_per_pixel_kernels(stack[..., 3:6].cpu(), torch.softmax(ref_logits, -1), k)
     (ref * g.cpu()).sum().backward()
     assert _within(logits.grad.cpu(), ref_logits.grad)
     with torch.inference_mode():
         kpn_apply.reset_launches()
-        kpn_apply.apply_per_pixel_kernels(stack[..., 3:6], torch.softmax(logits, 1).permute(0, 2, 3, 1), k)
+        kpn_apply.apply_per_pixel_kernels(stack[..., 3:6], torch.softmax(logits, -1), k)
         assert (kpn_apply.launches, kpn_apply.bwd_weights_launches) == (1, 0)
 
 
