@@ -8,7 +8,8 @@ inference/pipeline.py at 1080p with the release weights; `synth-data`,
 `prepare-data`, `train` and `denoise --checkpoint` for kpn-hq at the
 training recipe's batch and crop; the path tracer's 1080p frame and the
 train step fed by batches made on the card; the TF goldens, a TF checkpoint
-of kpn-hq, the pretraining recipe and the release export — and checks every
+of kpn-hq, the pretraining recipe and the release export; the measurement
+and evaluation tools of deepdenoiser_tpu_torch/tools/ — and checks every
 CUDA kernel against
 its plain PyTorch version on the card. Phases, each
 printing its results on its own lines; any failure raises and the run exits
@@ -139,7 +140,25 @@ non-zero:
                  tools/export_release_weights.py (the release file's keys, shapes
                  and fp16) and `deepdenoiser-torch denoise --weights` on the 1080p
                  frame (gain > 0, 8 K1 launches)
-  23. one JSON line {"kernels": [...]}; every phase's seconds on [time] lines
+  23. tools     the port's measurement and evaluation tools
+                 (deepdenoiser_tpu_torch/tools/), each main(argv) in-process
+                 on the card, stdout captured, its last JSON line checked and
+                 each frame denoiser's K1 launches a frame counted:
+                 bench_model kpn-hq at 1080p, border 32 (8 a frame; its
+                 latency beside phase 4's median) and kpn (group, 2);
+                 bench_4k kpn-hq, 2 frames, at tile 512 / tile_batch 8 (40 a
+                 frame) and at two of sweep_4k's configs, the whole frame with
+                 border 32 (8) and tile 1088 / tile_batch 2 (32);
+                 bench_sequence kpn-hq over 4 coherent 4K frames (8, gain > 0);
+                 bench_input_pipeline kpn-hq, batch 16, crop 96, 30 steps
+                 (8 K1 and 8 d_w a step, every rate > 0); eval_holdout and
+                 eval_zoo (kpn-hq 8, flagship-hq 0, kpn 2, with the traced
+                 column) at 540x960, every gain > 0; profile (a Chrome trace
+                 holding frame_0 and frame_1); measure() of the first config
+                 of sweep_bench and sweep_joint at 1080p; diag_multiscale on
+                 seeded weights; split_multilayer on the 1080p frame's
+                 multilayer EXR (the split passes equal the frame's)
+  24. one JSON line {"kernels": [...]}; every phase's seconds on [time] lines
   (with --profile, the frame phases and the train steps also print device
   time by kernel, every copy kernel's row and the device's busy share, from
   torch.profiler)
@@ -2921,6 +2940,298 @@ def phase_release(frame: dict, card: dict) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# the measurement and evaluation tools
+# --------------------------------------------------------------------------
+
+TOOLS_EVAL_H, TOOLS_EVAL_W = 540, 960  # eval_holdout, eval_zoo: see phase_tools
+TOOLS_PIPE_STEPS = 30
+MULTILAYER_EXR = WORK / "multilayer" / "frame.exr"
+
+
+def _write_multilayer(path: Path, h: int, w: int) -> float:
+    """The 1080p noisy frame (_fourier_frame's) as one multilayer EXR at
+    `path`; numpy on the host, run in the worker process beside the card.
+    Returns the seconds it took."""
+    from deepdenoiser_tpu_torch.data import exr, synthetic
+
+    t0 = time.perf_counter()
+    clean = synthetic.generate_clean_passes(h, w, seed=0)
+    exr.save_multilayer_exr(path, synthetic.add_mc_noise(clean, spp=4, seed=1))
+    return time.perf_counter() - t0
+
+
+def _pipe_corpus(crop: int) -> tuple:
+    """tools/bench_input_pipeline.py's corpus at `crop` under WORK (EXR
+    renders and shards: numpy on the host, about a minute), built in the
+    worker process beside the card. Returns (shard dir, seconds)."""
+    from deepdenoiser_tpu_torch.tools import bench_input_pipeline
+
+    t0 = time.perf_counter()
+    shards = bench_input_pipeline._build_corpus(WORK / "pipe_bench", crop)
+    return shards, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def counting_frames():
+    """Yields a list that gets one [frames, K1 launches] record per joint
+    or group frame denoiser called inside the block, in the order they are
+    first called: each call of a denoiser adds one frame and the K1
+    launches made during it."""
+    from deepdenoiser_tpu_torch.inference import pipeline
+    from deepdenoiser_tpu_torch.ops import kpn_apply
+
+    records = []
+    originals = {cls: cls.__call__ for cls in (pipeline.JointFrameDenoiser,
+                                               pipeline.GroupFrameDenoiser)}
+
+    def counted(call):
+        def run(self, pass_dict):
+            if "_smoke_frames" not in self.__dict__:
+                self._smoke_frames = [0, 0]
+                records.append(self._smoke_frames)
+            before = kpn_apply.launches
+            out = call(self, pass_dict)
+            self._smoke_frames[0] += 1
+            self._smoke_frames[1] += kpn_apply.launches - before
+            return out
+        return run
+
+    for cls, call in originals.items():
+        cls.__call__ = counted(call)
+    try:
+        yield records
+    finally:
+        for cls, call in originals.items():
+            cls.__call__ = call
+
+
+def _run_tool(name: str, argv: list) -> dict:
+    """tools/<name>.main(argv) in-process on the card (its default device),
+    stdout captured, every launch count set to 0 just before and read just
+    after. Returns {json: its last JSON line, denoisers: [frames, K1] per
+    frame denoiser, launches, s, out}."""
+    import importlib
+
+    module = importlib.import_module(f"deepdenoiser_tpu_torch.tools.{name}")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with counting_frames() as records, contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    if rc != 0:
+        raise AssertionError(f"tools/{name} {' '.join(argv)} returned {rc}: {buf.getvalue()}")
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    torch.cuda.empty_cache()
+    return {"json": json.loads(lines[-1]) if lines else None, "denoisers": records,
+            "launches": launches, "s": secs, "out": buf.getvalue()}
+
+
+def _per_frame(what: str, run: dict, k1_per_frame: list, **other_per_frame) -> int:
+    """Check each frame denoiser's K1 launches a frame (one entry per
+    denoiser, in order) and that no other kernel launched but as given per
+    frame; returns the frames denoised."""
+    got = [(n, k) for n, k in run["denoisers"]]
+    if len(got) != len(k1_per_frame) or any(
+            n < 1 or k != want * n for (n, k), want in zip(got, k1_per_frame)):
+        raise AssertionError(f"{what}: (frames, K1 launches) per denoiser {got}, want "
+                             f"{k1_per_frame} K1 a frame")
+    frames = sum(n for n, _ in got)
+    want = {name: 0 for name in run["launches"]}
+    want["kpn_apply"] = sum(k for _, k in got)
+    for name, per in other_per_frame.items():
+        want[name] = per * frames
+    if run["launches"] != want:
+        raise AssertionError(f"{what}: kernel launches {run['launches']}, want {want}")
+    return frames
+
+
+def _gains_positive(what: str, row: dict) -> None:
+    bad = {k: v for k, v in row.items() if "gain" in k and not v > 0}
+    if bad:
+        raise AssertionError(f"{what}: no PSNR gain: {bad} in {row}")
+
+
+def phase_tools(frame: dict, card: dict, kpn_res: dict, multilayer, corpus) -> dict:
+    """The port's tools (deepdenoiser_tpu_torch/tools/), each main(argv)
+    in-process on the card, its last JSON line checked, the K1 launches of
+    each frame denoiser counted: bench_model (kpn-hq 8 a frame, kpn 2),
+    bench_4k (tile 512 / tile_batch 8: 40 a frame; sweep_4k's whole-frame
+    and 1088/2 configs: 8 and 32), bench_sequence (8), bench_input_pipeline
+    (8 K1 and 8 d_w a step), eval_holdout and eval_zoo at 540x960 (the
+    numpy spheres and boxes families and the 1024-spp traced GT at 1080p
+    would not fit the phase's time), profile, the first config of each
+    1080p sweep, diag_multiscale on seeded weights (the repo ships none),
+    split_multilayer on the 1080p frame's multilayer EXR. The worker
+    process wrote that EXR (`multilayer`) and the input pipeline's corpus
+    (`corpus`, with the tool's own _build_corpus) beside the earlier
+    phases."""
+    import numpy as np
+
+    from deepdenoiser_tpu_torch.data import exr
+    from deepdenoiser_tpu_torch.tools import eval_zoo, sweep_4k, sweep_bench, sweep_joint
+    from deepdenoiser_tpu_torch.tools.pretrain_flagship import MODELS
+
+    res = {"s": {}, "k1_per_frame": {}}
+
+    def tool(label, name, argv):
+        run = _run_tool(name, argv)
+        res["s"][label] = run["s"]
+        return run
+
+    def measured(label, run, index=0):  # K1 launches a frame of one denoiser, as counted
+        frames, k1 = run["denoisers"][index]
+        res["k1_per_frame"][label] = k1 / frames
+
+    # bench_model: the per-model 1080p latency
+    res["bench_model"] = {}
+    for model, k1 in (("kpn-hq", 8), ("kpn", 2)):
+        run = tool(f"bench_model {model}", "bench_model", ["--model", model])
+        _per_frame(f"bench_model {model}", run, [k1])
+        measured(f"tools/bench_model {model} frame", run)
+        _gains_positive(f"bench_model {model}", run["json"])
+        res["bench_model"][model] = run["json"]
+    bm = res["bench_model"]["kpn-hq"]
+    log(f"[tools] bench_model kpn-hq: {bm['latency_ms']:.2f} ms/frame (median of 5 samples "
+        f"of 8 frames, CUDA events; samples {bm['samples_ms']}) beside phase 4's "
+        f"{kpn_res['ms_median']:.2f} (host clock around each frame's synchronize); gain "
+        f"{bm['gain_db']} dB, SSIM {bm['ssim']}; kpn (group) {res['bench_model']['kpn']['latency_ms']:.2f}"
+        f" ms/frame, gain {res['bench_model']['kpn']['gain_db']} dB | {card['smi']}")
+
+    # bench_4k: tiled, and two of sweep_4k's configs
+    res["bench_4k"] = {}
+    for cfg, k1 in ((["--tile", "512", "--tile-batch", "8"], 40), (sweep_4k.CONFIGS[0], 8),
+                    (sweep_4k.CONFIGS[2], 32)):
+        label = " ".join(cfg)
+        run = tool(f"bench_4k {label}", "bench_4k", ["--model", "kpn-hq", "--frames", "2", *cfg])
+        _per_frame(f"bench_4k {label}", run, [k1])
+        measured(f"tools/bench_4k kpn-hq frame, {label}", run)
+        j = run["json"]
+        if not j["psnr_mean"] > j["psnr_noisy_mean"] or len(j["latency_ms"]) != 2:
+            raise AssertionError(f"bench_4k {label}: {j}")
+        res["bench_4k"][label] = j
+        log(f"[tools] bench_4k kpn-hq {j['resolution']} {label}: {j['latency_ms']} ms/frame (4 denoises "
+            f"between CUDA events a frame), PSNR {j['psnr_mean']} dB (noisy "
+            f"{j['psnr_noisy_mean']}), SSIM {j['ssim_mean']}; {k1} K1 a frame | {card['smi']}")
+
+    # bench_sequence: 4 coherent 4K frames
+    run = tool("bench_sequence", "bench_sequence",
+               ["--model", "kpn-hq", "--weights", str(ROOT / "weights" / "kpn_hq_ema_f16.npz"),
+                "--frames", "4"])
+    _per_frame("bench_sequence", run, [8])
+    measured("tools/bench_sequence kpn-hq 4K frame", run)
+    seq = res["bench_sequence"] = run["json"]
+    if not seq["gain_db_mean"] > 0 or len(seq["frames"]) != 4:
+        raise AssertionError(f"bench_sequence: {seq}")
+    log(f"[tools] bench_sequence kpn-hq, 4 frames of {seq['resolution']}: {seq['per_frame_ms_chained']} "
+        f"ms/frame chained ({seq['fps']} fps; generation {seq['gen_chain_ms_total']} ms for all "
+        f"4, taken out), series {[f['latency_ms'] for f in seq['frames']]} ms, gain "
+        f"{seq['gain_db_mean']} dB, SSIM {seq['ssim_mean']} | {card['smi']}")
+
+    # bench_input_pipeline: the loader, the fit path, device batches
+    shards, res["corpus_s"] = corpus.result()
+    run = tool("bench_input_pipeline", "bench_input_pipeline",
+               ["--model", "kpn-hq", "--batch", str(TRAIN_BATCH), "--crop", str(TRAIN_CROP),
+                "--steps", str(TOOLS_PIPE_STEPS), "--shards", str(shards)])
+    steps = 2 * (TOOLS_PIPE_STEPS + 1)  # two timed paths, each after a warm-up step
+    expect_launches("bench_input_pipeline", run["launches"], steps, kpn_apply=8,
+                    kpn_apply_bwd_weights=8)
+    pipe = res["bench_input_pipeline"] = dict(
+        run["json"], steps=steps, launches_per_step={k: v / steps for k, v in run["launches"].items()})
+    rates = ("host_iter_batches_per_s", "grain_2dispatch_steps_per_s", "synth_fused_steps_per_s",
+             "grain_vs_synth")
+    if not all(math.isfinite(pipe[k]) and pipe[k] > 0 for k in rates):
+        raise AssertionError(f"bench_input_pipeline: {pipe}")
+    log(f"[tools] bench_input_pipeline kpn-hq batch {TRAIN_BATCH} crop {TRAIN_CROP}, "
+        f"{TOOLS_PIPE_STEPS} steps: loader {pipe['host_iter_batches_per_s']} batches/s, fit path "
+        f"{pipe['grain_2dispatch_steps_per_s']} steps/s, device batches "
+        f"{pipe['synth_fused_steps_per_s']} steps/s (ratio {pipe['grain_vs_synth']}); 8 K1 + 8 "
+        f"d_w a step over {steps} steps; corpus built by the worker in {res['corpus_s']:.1f} s "
+        f"| {card['smi']}")
+
+    # eval_holdout and eval_zoo
+    size = ["--height", str(TOOLS_EVAL_H), "--width", str(TOOLS_EVAL_W), "--frames", "1"]
+    run = tool("eval_holdout", "eval_holdout", [*size, "--spp", "4"])
+    _per_frame("eval_holdout", run, [0] * 4)
+    res["eval_holdout"] = run["json"]["eval_holdout"]
+    for row in res["eval_holdout"]:
+        _gains_positive(f"eval_holdout {row['family']}", row)
+    log(f"[tools] eval_holdout flagship {TOOLS_EVAL_H}x{TOOLS_EVAL_W} spp 4: " + ", ".join(
+        f"{r['family']} {r['gain_db']:+.2f} dB (SSIM {r['ssim']}, {r['latency_ms']} ms)"
+        for r in res["eval_holdout"]) + f" | {card['smi']}")
+    zoo_models = (("kpn-hq", 8), ("flagship-hq", 0), ("kpn", 2))
+    run = tool("eval_zoo", "eval_zoo", ["--models", *(m for m, _ in zoo_models), *size])
+    _per_frame("eval_zoo", run, [k for _, k in zoo_models])
+    for i, (model, _) in enumerate(zoo_models):
+        measured(f"tools/eval_zoo {model} frame", run, i)
+    res["eval_zoo"] = run["json"]["zoo"]
+    if [r["model"] for r in res["eval_zoo"]] != [m for m, _ in zoo_models]:
+        raise AssertionError(f"eval_zoo: {res['eval_zoo']}")
+    for row in res["eval_zoo"]:
+        _gains_positive(f"eval_zoo {row['model']}", row)
+        if row["latency_ms"] is None or "mc_gain_db" not in row:
+            raise AssertionError(f"eval_zoo {row['model']}: {row}")
+        log(f"[tools] eval_zoo {row['model']} {TOOLS_EVAL_H}x{TOOLS_EVAL_W}: {row['latency_ms']} ms/frame; gain "
+            + ", ".join(f"{f} {row[f + '_gain_db']:+.2f}"
+                        for f in ("train", "voronoi", "holdout", "holdout2", "mc"))
+            + f" dB | {card['smi']}")
+
+    # profile: a Chrome trace of two flagship frames
+    trace_dir = WORK / "trace"
+    run = tool("profile", "profile", ["--iters", "2", "--out", str(trace_dir)])
+    _per_frame("profile", run, [0])
+    names = {e.get("name") for e in json.loads((trace_dir / "trace.json").read_text())["traceEvents"]}
+    if not {"frame_0", "frame_1"} <= names:
+        raise AssertionError("profile: the trace lacks frame_0 / frame_1")
+    res["profile"] = {"events": len(names), "bytes": (trace_dir / "trace.json").stat().st_size}
+
+    # the sweeps' measure() on their first config, on the 1080p frame
+    noisy = eval_zoo.to_device(frame["noisy"], torch.device("cuda"))
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res["sweep_bench"] = sweep_bench.measure(*sweep_bench.CONFIGS[0], noisy)
+        res["sweep_joint"] = sweep_joint.measure(sweep_joint.CONFIGS[0], noisy)
+    res["s"]["sweeps"] = time.perf_counter() - t0
+    expect_launches("sweeps", read_launches())
+    log(f"[tools] sweep_bench first config (group, s2d, base 48) {res['sweep_bench']:.2f} "
+        f"ms/frame; sweep_joint first config (joint, s2d, base 64) {res['sweep_joint']:.2f} "
+        f"ms/frame (random weights) | {card['smi']}")
+    del noisy
+
+    # diag_multiscale on seeded weights
+    load = eval_zoo.load_model_params
+    params = _seeded_params(MODELS["multiscale"])
+    eval_zoo.load_model_params = lambda name: (MODELS[name], params, "joint")
+    try:
+        run = tool("diag_multiscale", "diag_multiscale", ["--frames", "1"])
+    finally:
+        eval_zoo.load_model_params = load
+    _per_frame("diag_multiscale", run, [0] * 3)
+    res["diag_multiscale"] = run["json"]["multiscale_diag"]
+    if [r["n_scales"] for r in res["diag_multiscale"]] != [3, 2, 1] or not all(
+            math.isfinite(v) for r in res["diag_multiscale"] for v in r.values()):
+        raise AssertionError(f"diag_multiscale: {res['diag_multiscale']}")
+
+    # split_multilayer on the 1080p frame's multilayer EXR
+    res["multilayer_write_s"] = multilayer.result()
+    run = tool("split_multilayer", "split_multilayer", [str(MULTILAYER_EXR)])
+    split = exr.load_frame_dir(MULTILAYER_EXR.parent, strict=False)
+    if set(split) != set(frame["noisy"]) or not all(
+            np.array_equal(split[k], np.asarray(v, np.float32)) for k, v in frame["noisy"].items()):
+        raise AssertionError("split_multilayer: the split passes differ from the frame's")
+    log(f"[tools] profile: trace {res['profile']['bytes']} bytes with frame_0, frame_1; "
+        f"diag_multiscale 512x768 (seeded weights): {res['diag_multiscale']}; split_multilayer: "
+        f"{len(split)} passes of the 1080p frame read back equal (multilayer written in "
+        f"{res['multilayer_write_s']:.1f} s by the worker) | {card['smi']}")
+    log("[tools] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in res["s"].items()))
+    return res
+
+
 def _kernel_row(name: str, source: str, replaces: str, launches: int, t: dict,
                 on_path: bool = True, **extra) -> dict:
     """One entry of the kernels line; `on_path`: some entry point's path
@@ -2935,7 +3246,7 @@ def _kernel_row(name: str, source: str, replaces: str, launches: int, t: dict,
     }
 
 
-def _run_phases(phase, card: dict, holdouts, profile: bool) -> tuple:
+def _run_phases(phase, card: dict, holdouts, multilayer, corpus, profile: bool) -> tuple:
     phase("build", phase_build)
     kern = phase("kernels", phase_kernels, card)
     ingest = phase("ingest-kernels", phase_ingest_kernels, card)
@@ -2976,8 +3287,9 @@ def _run_phases(phase, card: dict, holdouts, profile: bool) -> tuple:
     batch_res = phase("device-batch", phase_device_batch, card, train_res)
     md_res = phase("multi-device", phase_multi_device, frame, card)
     rel_res = phase("release", phase_release, frame, card)
+    tools_res = phase("tools", phase_tools, frame, card, kpn_res, multilayer, corpus)
     return (kern, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res, feather_res,
-            train_kern, train_res, mc_res, batch_res, md_res, rel_res)
+            train_kern, train_res, mc_res, batch_res, md_res, rel_res, tools_res)
 
 
 def main(argv=None) -> int:
@@ -2996,14 +3308,19 @@ def main(argv=None) -> int:
         return out
 
     card = phase("card", phase_card)
-    # bench.py's two holdout families at 1080p are numpy work of a minute:
-    # one worker process makes them beside the card's phases, for phase mc
+    # bench.py's two holdout families at 1080p are numpy work of a minute,
+    # the 1080p frame as a multilayer EXR half a minute and the input
+    # pipeline's corpus a minute: one worker process makes them beside the
+    # card's phases, for phases mc and tools
     with concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn")) as pool:
         holdouts = pool.submit(_holdout_frames, FRAME_H, FRAME_W)
-        res = _run_phases(phase, card, holdouts, args.profile)
+        MULTILAYER_EXR.parent.mkdir(parents=True, exist_ok=True)
+        multilayer = pool.submit(_write_multilayer, MULTILAYER_EXR, FRAME_H, FRAME_W)
+        corpus = pool.submit(_pipe_corpus, TRAIN_CROP)
+        res = _run_phases(phase, card, holdouts, multilayer, corpus, args.profile)
     kern, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res, feather_res, \
-        train_kern, train_res, mc_res, batch_res, md_res, rel_res = res
+        train_kern, train_res, mc_res, batch_res, md_res, rel_res, tools_res = res
     log("[time] " + ", ".join(f"{k} {v:.0f}" for k, v in seconds.items()) + " s")
 
     group, tile, train_fwd = kern["group"], kern["tile"], kern["train"]
@@ -3048,6 +3365,9 @@ def main(argv=None) -> int:
                 rel_res["recipe"]["teacher"]["launches_per_step"]["kpn_apply"],
             "kpn-hq recipe validation batch": rel_res["recipe"]["teacher"]["launches_per_val_batch"],
             "kpn-hq cli frame with the exported npz": rel_res["export"]["kpn_apply"],
+            **tools_res["k1_per_frame"],
+            "tools/bench_input_pipeline kpn-hq step (fit path, device batches)":
+                tools_res["bench_input_pipeline"]["launches_per_step"]["kpn_apply"],
         },
     )]
     for entry, fn in BWD_ENTRIES.items():
@@ -3070,6 +3390,8 @@ def main(argv=None) -> int:
                     md_res["dp_step"]["launches_per_step"][f"kpn_apply_{entry}"],
                 "kpn-hq recipe step, teacher flagship-hq":
                     rel_res["recipe"]["teacher"]["launches_per_step"][f"kpn_apply_{entry}"],
+                "tools/bench_input_pipeline kpn-hq step (fit path, device batches)":
+                    tools_res["bench_input_pipeline"]["launches_per_step"][f"kpn_apply_{entry}"],
             },
             moved32=t["moved32"], moved64=t["moved64"], moved32_bound_ms=t["moved32_bound_ms"],
             moved64_bound_ms=t["moved64_bound_ms"], buffer_sets=t["buffer_sets"],
@@ -3137,6 +3459,16 @@ def main(argv=None) -> int:
         "with the teacher, {:.2f} without, peak {:.2f} GiB; export {} bytes, gain {:.4f} dB".format(
             rel_res["tf"]["bytes"], rel_res["tf"]["write_s"], rel_res["tf"]["read_s"], rt["ms"],
             rp["ms"], rt["peak_gib"], rel_res["export"]["bytes"], rel_res["export"]["gain_db"]))
+    bm, pipe = tools_res["bench_model"], tools_res["bench_input_pipeline"]
+    log("[summary] tools: bench_model kpn-hq {:.2f} ms/frame (phase 4: {:.2f}), kpn {:.2f}; "
+        "bench_4k kpn-hq ".format(bm["kpn-hq"]["latency_ms"], kpn_res["ms_median"],
+                                 bm["kpn"]["latency_ms"])
+        + ", ".join(f"{cfg}: {r['latency_ms_median']}" for cfg, r in tools_res["bench_4k"].items())
+        + " ms/frame; bench_sequence {} ms/frame chained; input pipeline {} / {} steps/s (fit "
+        "path / device batches); phase {:.0f} s".format(
+            tools_res["bench_sequence"]["per_frame_ms_chained"],
+            pipe["grain_2dispatch_steps_per_s"], pipe["synth_fused_steps_per_s"],
+            sum(tools_res["s"].values())))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],

@@ -47,15 +47,15 @@ def _load_frame(path: Path):
 
 
 def _load_config(args):
+    """The experiment as given, unvalidated: prepare-data reads only its
+    data section, and `train` validates inside training/loop.fit."""
     from deepdenoiser_tpu_torch import config as config_lib
 
     if args.config:
-        cfg = config_lib.load(args.config)
-    elif args.preset:
-        cfg = config_lib.PRESETS[args.preset]
-    else:
-        cfg = config_lib.ExperimentConfig()
-    return config_lib.validate_channels(cfg)
+        return config_lib.load(args.config)
+    if args.preset:
+        return config_lib.PRESETS[args.preset]
+    return config_lib.ExperimentConfig()
 
 
 def _load_params(args, cfg, what: str):
@@ -125,7 +125,7 @@ def cmd_denoise(args) -> int:
     from deepdenoiser_tpu_torch.data import exr
     from deepdenoiser_tpu_torch.inference import pipeline
 
-    cfg = _load_config(args)
+    cfg = config_lib.validate_channels(_load_config(args))
     mcfg = cfg.model
     mode = args.mode or cfg.data.mode
     if args.mode and args.mode != cfg.data.mode:
@@ -175,9 +175,10 @@ def cmd_denoise(args) -> int:
 
 def cmd_eval(args) -> int:
     """Full-frame PSNR/SSIM against ground truth over a render root."""
+    from deepdenoiser_tpu_torch import config as config_lib
     from deepdenoiser_tpu_torch.inference import sequence
 
-    cfg = _load_config(args)
+    cfg = config_lib.validate_channels(_load_config(args))
     params = _load_params(args, cfg, "evaluating")
     report = sequence.evaluate_render_root(
         cfg.model, cfg.infer, params, args.renders, mode=cfg.data.mode,

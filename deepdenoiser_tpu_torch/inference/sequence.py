@@ -39,9 +39,10 @@ from deepdenoiser_tpu_torch.parallel import mesh as mesh_lib
 Tensor = torch.Tensor
 
 
-def _make_mode_denoiser(model_cfg, infer_cfg, height, width, params, mode, scales,
-                        groups, use_flags, device):
-    """Shared mode dispatch; threads use_flags and groups into joint mode so
+def make_mode_denoiser(model_cfg, infer_cfg, height, width, params, mode, scales=None,
+                       groups=None, use_flags=False, device=None):
+    """The frame denoiser of `mode` ('joint', 'group' or 'rgb'); returns
+    (denoiser, grid). Threads use_flags and groups into joint mode so
     flag-trained models work through every sequence entry point."""
     kw = {} if groups is None else {"groups": tuple(groups)}
     if mode == "group":
@@ -74,7 +75,7 @@ def make_sequence_denoiser(
     ssim), grid). psnr and ssim are 0-d tensors on the device, of the
     Reinhard-tonemapped frames. Runs on "cuda" unless `device` says
     otherwise; raises when there is no card."""
-    denoise, grid = _make_mode_denoiser(
+    denoise, grid = make_mode_denoiser(
         model_cfg, infer_cfg, height, width, params, mode, scales, groups, use_flags, device
     )
 
@@ -118,8 +119,8 @@ def make_batch_frame_denoiser(
     dens, grid = {}, None
     for d in devs:
         if d not in dens:
-            dens[d], grid = _make_mode_denoiser(model_cfg, infer_cfg, height, width, params, mode,
-                                                scales, groups, use_flags, d)
+            dens[d], grid = make_mode_denoiser(model_cfg, infer_cfg, height, width, params, mode,
+                                               scales, groups, use_flags, d)
 
     @torch.inference_mode()
     def run(batch: Mapping[str, Any]) -> Tensor:

@@ -122,3 +122,8 @@ class KernelPredictionHead(nn.Module):
                 self.filter_apply(signal[..., 3 * s : 3 * (s + 1)].float(), weights, self.kernel_size)
             )
         return torch.cat(outs, dim=-1)
+
+
+def kpn_receptive_field(backbone_rf: int, kernel_size: int) -> int:
+    """The receptive field of a backbone with a k x k filter head after it."""
+    return backbone_rf + kernel_size - 1

@@ -120,3 +120,77 @@ def group_passes(group: str) -> Tuple[str, str, str]:
 def recomposition_terms(groups: Sequence[str] = LIGHT_GROUPS) -> List[Tuple[str, str, str]]:
     """Terms of `combined = Σ color ⊙ (direct + indirect) + emission + environment`."""
     return [group_passes(g) for g in groups]
+
+
+# ---------------------------------------------------------------------------
+# Canonical naming (upstream: TensorFlow/Naming.py — SURVEY.md C2)
+# ---------------------------------------------------------------------------
+
+SOURCE = "source"
+TARGET = "target"
+PREDICTION = "prediction"
+
+
+def feature_name(pass_name: str, role: str = SOURCE, index: int = 0) -> str:
+    """Canonical dict key for a tensor: datasets, model, and losses agree on it.
+
+    `index` distinguishes multiple noise realizations of the same source pass.
+    """
+    get(pass_name)  # validate
+    if role == SOURCE:
+        return f"{SOURCE}/{pass_name}/{index}"
+    if role in (TARGET, PREDICTION):
+        return f"{role}/{pass_name}"
+    raise ValueError(f"unknown role {role!r}")
+
+
+def parse_feature_name(key: str) -> Tuple[str, str, int]:
+    """Inverse of feature_name -> (pass_name, role, index)."""
+    parts = key.split("/")
+    if parts[0] == SOURCE and len(parts) == 3:
+        return parts[1], SOURCE, int(parts[2])
+    if parts[0] in (TARGET, PREDICTION) and len(parts) == 2:
+        return parts[1], parts[0], 0
+    raise ValueError(f"unparseable feature name {key!r}")
+
+
+# ---------------------------------------------------------------------------
+# Feature flags (upstream: TensorFlow/FeatureFlags.py — SURVEY.md C3)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FeatureFlags:
+    """Which passes are present/enabled for an example set.
+
+    Scenes may lack some passes (e.g. no subsurface). The flags select the
+    active light groups and aux features, and can be encoded as constant
+    mask channels (transforms.encode_flag_channels) for networks trained
+    across heterogeneous pass sets.
+    """
+
+    groups: Tuple[str, ...] = LIGHT_GROUPS
+    use_normal: bool = True
+    use_depth: bool = True
+    use_alpha: bool = True
+
+    def __post_init__(self) -> None:
+        for g in self.groups:
+            if g not in LIGHT_GROUPS:
+                raise KeyError(f"unknown light group {g!r}")
+
+    @property
+    def aux_passes(self) -> Tuple[str, ...]:
+        used = (("normal", self.use_normal), ("depth", self.use_depth), ("alpha", self.use_alpha))
+        return tuple(name for name, on in used if on)
+
+    @property
+    def aux_channels(self) -> int:
+        return sum(channels(p) for p in self.aux_passes)
+
+    def mask_bits(self) -> Tuple[int, ...]:
+        """Stable bit vector (one per LIGHT_GROUPS entry + 3 aux) for encoding
+        the active feature set as constant channels."""
+        bits = [1 if g in self.groups else 0 for g in LIGHT_GROUPS]
+        bits += [int(self.use_normal), int(self.use_depth), int(self.use_alpha)]
+        return tuple(bits)

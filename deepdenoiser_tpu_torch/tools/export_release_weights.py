@@ -18,12 +18,24 @@ from __future__ import annotations
 import argparse
 import sys
 from pathlib import Path
-from typing import List
+from typing import Any, Dict, List, Optional, Tuple
 
 from deepdenoiser_tpu_torch import weights_io
 from deepdenoiser_tpu_torch.models import factory
 from deepdenoiser_tpu_torch.tools.pretrain_flagship import MODELS
 from deepdenoiser_tpu_torch.training.checkpoint import CheckpointManager
+
+
+def checkpoint_params(ckpt) -> Optional[Tuple[Dict[str, Any], Dict[str, Any], Dict[str, Any]]]:
+    """(the Flax tree of the newest checkpoint under `ckpt` — its EMA
+    parameters, the raw ones when the run kept no EMA —, the state, the
+    checkpoint's extra), or None when there is no checkpoint."""
+    got = CheckpointManager(ckpt).read_latest(map_location="cpu")
+    if got is None:
+        return None
+    state, extra = got
+    chosen = state["ema_params"] if state["ema_params"] is not None else state["params"]
+    return weights_io.params_from_state_dict(chosen), state, extra
 
 
 def main(argv: List[str] | None = None) -> int:
@@ -34,14 +46,11 @@ def main(argv: List[str] | None = None) -> int:
     p.add_argument("--model", default="flagship", choices=sorted(MODELS))
     args = p.parse_args(argv)
 
-    got = CheckpointManager(args.ckpt).read_latest(map_location="cpu") \
-        if Path(args.ckpt).is_dir() else None
+    got = checkpoint_params(args.ckpt) if Path(args.ckpt).is_dir() else None
     if got is None:
         print(f"no checkpoint under {args.ckpt}", file=sys.stderr)
         return 1
-    state, extra = got
-    chosen = state["ema_params"] if state["ema_params"] is not None else state["params"]
-    params = weights_io.params_from_state_dict(chosen)
+    params, state, extra = got
     weights_io.load_into(factory.build_model(MODELS[args.model]), params)  # fits --model
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     weights_io.save_release_params(args.out, params)

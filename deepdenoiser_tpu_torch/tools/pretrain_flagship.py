@@ -146,7 +146,8 @@ MODELS: Dict[str, ModelConfig] = {
     "tiramisu-ft2-c208": TIRAMISU_FAST,
 }
 MODES = {24: "joint", 6: "group", 3: "rgb"}  # by out_channels
-WEIGHTS_DIR = Path(__file__).resolve().parents[2] / "weights"
+REPO_ROOT = Path(__file__).resolve().parents[2]
+WEIGHTS_DIR = REPO_ROOT / "weights"
 TRAIN_SEED = 42  # + the step resumed from
 VAL_SEED = 987_000  # + the validation batch's index
 VAL_BATCHES = 4

@@ -159,6 +159,17 @@ def group_input_channels(aux: Sequence[str] = passes.AUX_PASSES) -> int:
 GROUP_OUTPUT_CHANNELS = 6  # denoised log-demod direct + indirect
 
 
+def encode_flag_channels(flags: passes.FeatureFlags, height: int, width: int,
+                         device=None) -> Tensor:
+    """Feature-flag bits as constant input channels (upstream:
+    FeatureFlags' flag tensors — SURVEY.md C3): lets one network train
+    across scenes with heterogeneous pass sets. A float32 (height, width,
+    len(flags.mask_bits())) tensor on `device`; concatenate it to any
+    encoded input stack."""
+    bits = torch.tensor(flags.mask_bits(), dtype=torch.float32, device=device)
+    return bits.expand(height, width, bits.shape[0])
+
+
 def decode_group_outputs(
     net_out: Tensor,
     albedo: Tensor,

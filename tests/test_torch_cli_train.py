@@ -106,3 +106,59 @@ def test_train_resumes_and_its_metrics_continue(workspace):
                      "--shards", str(workspace / "shards"), "--device", "cpu"]) == 0
     assert [m["step"] for m in _lines(run / "metrics_train.jsonl")] == [2, 4, 6]
     assert sorted(int(p.name) for p in (run / "checkpoints").iterdir()) == [2, 3, 6]
+
+
+# the fault's config, cut to the workspace's 48x48 frames
+FLAGS_OUTSIDE_JOINT = {"data": {"mode": "group", "use_flags": True, "crop": 32,
+                                "crops_per_frame": 4, "validation_fraction": 0.34}}
+
+
+@pytest.fixture(scope="module")
+def flags_config(workspace):
+    """A config whose mode/flags pair fails the channel check: prepare-data
+    reads only its data section, denoise and eval must refuse it."""
+    path = workspace / "flags_group.json"
+    path.write_text(json.dumps(FLAGS_OUTSIDE_JOINT))
+    return path
+
+
+def test_prepare_data_accepts_what_the_jax_command_accepts(workspace, flags_config, tmp_path):
+    from deepdenoiser_tpu import cli as jcli
+
+    renders = str(workspace / "renders")
+    assert jcli.main(["prepare-data", "--config", str(flags_config), "--renders", renders,
+                      "--out", str(tmp_path / "jax")]) == 0
+    assert cli.main(["prepare-data", "--config", str(flags_config), "--renders", renders,
+                     "--out", str(tmp_path / "port")]) == 0
+    splits = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert "train" in splits
+    assert sorted(p.name for p in (tmp_path / "port").iterdir()) == splits
+    for split in splits:
+        jdir, pdir = tmp_path / "jax" / split, tmp_path / "port" / split
+        assert sorted(p.name for p in pdir.iterdir()) == sorted(p.name for p in jdir.iterdir())
+        jmeta = json.loads((jdir / "meta.json").read_text())
+        assert json.loads((pdir / "meta.json").read_text()) == jmeta
+        assert jmeta["flags_dim"] == 4
+        jreader, preader = jshards.ShardReader(jdir), jshards.ShardReader(pdir)
+        assert len(preader) == len(jreader) > 0
+        for i in range(len(jreader)):
+            want, got = jreader[i], preader[i]
+            assert sorted(got) == sorted(want)
+            for key, arr in want.items():
+                np.testing.assert_array_equal(got[key], arr)
+
+
+@pytest.mark.parametrize("command", ["denoise", "eval"])
+def test_denoise_and_eval_still_refuse_a_config_that_fails_the_channel_check(
+        command, workspace, flags_config, tmp_path):
+    from deepdenoiser_tpu import cli as jcli
+
+    tail = {"denoise": ["--frame", str(workspace / "renders" / "frame0000" / "spp4_seed0"),
+                        "--out", str(tmp_path / "out.exr")],
+            "eval": ["--renders", str(workspace / "renders")]}[command]
+    argv = [command, "--config", str(flags_config), "--weights", str(tmp_path / "none.npz"),
+            *tail]
+    with pytest.raises(ValueError, match="use_flags requires mode='joint'"):
+        jcli.main(argv)
+    with pytest.raises(ValueError, match="use_flags requires mode='joint'"):
+        cli.main(argv + ["--device", "cpu"])

@@ -147,3 +147,23 @@ def test_later_slices_raise_not_implemented(kw, match):
         in_channels=41, base_width=8, depth=2, **kw))
     with pytest.raises(ValueError, match="unknown backbone"):
         factory.build_model(factory.ModelConfig(backbone="resnet"))
+
+
+@pytest.mark.parametrize("preset_kw", [
+    dict(kpn_size=5, depth=3),
+    dict(kpn_size=3, depth=2),
+    dict(kpn_size=7, depth=1, stem_stride=2),
+], ids=["k5-d3", "k3-d2", "k7-d1-s2d"])
+def test_kpn_receptive_field_matches_jax(preset_kw):
+    from deepdenoiser_tpu.models import kpn as jkpn
+    from deepdenoiser_tpu_torch.models import kpn
+
+    kw = dict(backbone="unet", in_channels=41, out_channels=24, base_width=64,
+              act="leaky_relu", kernel_prediction=True, kpn_slots=8)
+    kw.update(preset_kw)
+    backbone_rf = factory.receptive_field(factory.ModelConfig(
+        **{**kw, "kernel_prediction": False}))
+    for rf in (backbone_rf, 1, 0, 133):
+        got = kpn.kpn_receptive_field(rf, kw["kpn_size"])
+        assert got == jkpn.kpn_receptive_field(rf, kw["kpn_size"])
+    assert kpn.kpn_receptive_field(backbone_rf, kw["kpn_size"]) == backbone_rf + kw["kpn_size"] - 1

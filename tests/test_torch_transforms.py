@@ -194,3 +194,73 @@ def test_exr_copy_is_bit_equal_to_jax_codec(noisy, tmp_path, writer):
         np.testing.assert_array_equal(
             r_mod.read_exr(tmp_path / "a.exr"), w_mod.read_exr(tmp_path / "a.exr")
         )
+
+
+# twins of tests/test_passes.py:39-61 and tests/test_transforms.py:109-114,
+# each held to the JAX function
+
+
+@pytest.mark.parametrize("name", ["diffuse_direct", "combined", "depth"])
+def test_feature_naming_roundtrip_matches_jax(name):
+    assert (passes.SOURCE, passes.TARGET, passes.PREDICTION) == (
+        jpasses.SOURCE, jpasses.TARGET, jpasses.PREDICTION)
+    for role, idx in [(passes.SOURCE, 0), (passes.SOURCE, 3), (passes.TARGET, 0),
+                      (passes.PREDICTION, 0)]:
+        key = passes.feature_name(name, role, idx)
+        assert key == jpasses.feature_name(name, role, idx)
+        p, r, i = passes.parse_feature_name(key)
+        assert (p, r, i) == jpasses.parse_feature_name(key)
+        assert p == name and r == role
+        if role == passes.SOURCE:
+            assert i == idx
+
+
+def test_feature_name_validates_pass_and_role_as_jax_does():
+    for mod in (passes, jpasses):
+        with pytest.raises(KeyError):
+            mod.feature_name("nonexistent")
+        with pytest.raises(ValueError, match="unknown role"):
+            mod.feature_name("depth", "weights")
+        with pytest.raises(ValueError, match="unparseable"):
+            mod.parse_feature_name("source/depth")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(groups=("diffuse", "glossy"), use_depth=False),
+    dict(),
+    dict(groups=("transmission",), use_normal=False, use_alpha=False),
+    dict(groups=(), use_normal=False, use_depth=False, use_alpha=False),
+])
+def test_feature_flags_match_jax(kw):
+    ff, jff = passes.FeatureFlags(**kw), jpasses.FeatureFlags(**kw)
+    assert ff.aux_passes == jff.aux_passes
+    assert ff.aux_channels == jff.aux_channels
+    assert ff.mask_bits() == jff.mask_bits()
+    assert dataclasses.asdict(ff) == dataclasses.asdict(jff)
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        ff.use_depth = not ff.use_depth
+
+
+def test_feature_flags_of_the_jax_test():
+    ff = passes.FeatureFlags(groups=("diffuse", "glossy"), use_depth=False)
+    assert ff.aux_passes == ("normal", "alpha")
+    assert ff.aux_channels == 4
+    assert ff.mask_bits() == (1, 1, 0, 0, 1, 0, 1)
+    with pytest.raises(KeyError):
+        passes.FeatureFlags(groups=("fog",))
+
+
+@pytest.mark.parametrize("kw,hw", [
+    (dict(groups=("diffuse",), use_depth=False), (8, 10)),
+    (dict(), (3, 5)),
+    (dict(groups=("glossy", "transmission"), use_alpha=False), (1, 7)),
+])
+def test_flag_channels_match_jax(kw, hw):
+    ff, jff = passes.FeatureFlags(**kw), jpasses.FeatureFlags(**kw)
+    ch = transforms.encode_flag_channels(ff, *hw)
+    ref = np.asarray(jtransforms.encode_flag_channels(jff, *hw))
+    assert ch.dtype == torch.float32 and tuple(ch.shape) == ref.shape == (*hw, 7)
+    np.testing.assert_array_equal(ch.numpy(), ref)
+    np.testing.assert_array_equal(ch[0, 0].numpy(), np.asarray(ff.mask_bits(), np.float32))
+    assert ch.numpy().std(axis=(0, 1)).max() == 0  # constant per channel
+    assert transforms.encode_flag_channels(ff, *hw, device="cpu").device == torch.device("cpu")
