@@ -9,14 +9,16 @@ inference/pipeline.py at 1080p with the release weights; `synth-data`,
 training recipe's batch and crop; the path tracer's 1080p frame and the
 train step fed by batches made on the card; the TF goldens, a TF checkpoint
 of kpn-hq, the pretraining recipe and the release export; the measurement
-and evaluation tools of deepdenoiser_tpu_torch/tools/ — and checks every
+and evaluation tools of deepdenoiser_tpu_torch/tools/, the headline
+benchmark, the roofline and the EXR codec's native path — and checks every
 CUDA kernel against
 its plain PyTorch version on the card. Phases, each
 printing its results on its own lines; any failure raises and the run exits
 non-zero:
 
   1. card        name, count, power limit; fails without a CUDA device
-  2. build       nvcc every csrc/*.cu (ops/_build.py), ptxas report
+  2. build       nvcc every csrc/*.cu and c++ csrc/exr_pack.cpp (ops/_build.py),
+                 all at once; the ptxas report
   3. kernels     the KPN filter apply vs its plain version at the paths'
                  shapes, the train step's batch among them (max|d| <= 1e-5
                  + 1e-5*|ref|), with the weights in the head's contiguous
@@ -158,7 +160,25 @@ non-zero:
                  of sweep_bench and sweep_joint at 1080p; diag_multiscale on
                  seeded weights; split_multilayer on the 1080p frame's
                  multilayer EXR (the split passes equal the frame's)
-  24. one JSON line {"kernels": [...]}; every phase's seconds on [time] lines
+  24. bench     tools/bench.py (the headline record: 1080p fps and the gains
+                 on the four families) in-process with its defaults
+                 (flagship-hq, flagship, flagship-mc) and with --model kpn-hq
+                 (8 K1 a frame), on the frames the earlier phases made (the
+                 Fourier frame, the worker's holdouts, phase 19's traced
+                 frame): the JSON contract, every gain > 0, the headline's ms
+                 within 3 % of phase 5's (flagship-hq) and phase 4's (kpn-hq)
+                 medians
+  25. roofline  tools/roofline.py for kpn-hq, flagship-hq and flagship at
+                 1080p, border 32: FLOPs and bytes counted from the shapes
+                 over the CUDA-event latency, 0 < mfu <= 1 and 0 <
+                 hbm_utilization <= 1.05; tools/traffic_breakdown.py --time
+                 for kpn-hq (stage GFLOP, GB and ms, the op table with K1's
+                 8 launches)
+  26. exr       the 1080p multilayer EXR of phase 23 read and written back in
+                 turns (numpy, native, native, numpy) by the worker process:
+                 passes and files bit-equal across the turns, the seconds of
+                 each
+  27. one JSON line {"kernels": [...]}; every phase's seconds on [time] lines
   (with --profile, the frame phases and the train steps also print device
   time by kernel, every copy kernel's row and the device's busy share, from
   torch.profiler)
@@ -374,10 +394,10 @@ def phase_build() -> None:
     from deepdenoiser_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    paths = _build.build()
+    paths = _build.build([*_build.sources(), "exr_pack"])  # the EXR codec's host library too
     log(f"[build] {len(paths)} source(s) in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(p.name for p in paths.values()))
-    for name in paths:
+    for name in _build.sources():
         lines = [ln.strip() for ln in _build.ptxas_report(name).splitlines()]
         regs = [int(m.group(1)) for ln in lines
                 if (m := re.search(r"Used (\d+) registers", ln))]
@@ -425,6 +445,7 @@ def phase_kernels(card: dict) -> dict:
     "tile" and the kpn-hq train step's batch under "train"."""
     from deepdenoiser_tpu_torch.models import kpn
     from deepdenoiser_tpu_torch.ops import kpn_apply
+    from deepdenoiser_tpu_torch.tools import roofline
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -489,10 +510,11 @@ def phase_kernels(card: dict) -> dict:
             px = n * h * w
             rows = kpn_apply.tile_rows(shape, k)
             blocks = n * -(-h // rows) * -(-w // 32)
-            nbytes = px * (c + k * k + c) * 4  # each input read once, output written once
+            # each input read once, the output written once (the roofline's counter)
+            work = roofline.count_kpn_apply(n, h, w, k, c)
+            nbytes, flops = work.bytes, work.flops
             moved = {g: _moved_bytes(noisy, g) + _moved_bytes(weights, g) + px * c * 4
                      for g in (32, 64)}
-            flops = px * c * k * k * 2
             bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
             ops_ms = flops / H100_FP32_FLOP_PER_S * 1e3
             timing = timings[path] = {
@@ -712,13 +734,12 @@ def phase_ingest_kernels(card: dict) -> dict:
 
 
 def _group_encode_work(npix: int, groups: int, aux) -> tuple:
-    """(bytes, operations) of one group encode: every pass read once (the
-    aux passes once for all groups), every pixel of every group written
-    once; 7 operations per radiance element pair, 2 per aux element."""
-    a = sum(AUX_CHANNELS[x] for x in aux)
-    nbytes = 4 * npix * (9 * groups + a + groups * (9 + a))
-    flops = npix * (7 * 3 * groups + 2 * a)
-    return nbytes, flops
+    """(bytes, operations) of one group encode, from the roofline's counter
+    (tools/roofline.count_group_encode)."""
+    from deepdenoiser_tpu_torch.tools import roofline
+
+    work = roofline.count_group_encode(groups, npix, 1, aux)
+    return work.bytes, work.flops
 
 
 def _time_group_encode(card: dict, gen, max_abs_err: float) -> dict:
@@ -2257,6 +2278,9 @@ def phase_mc(frame: dict, card: dict, holdouts) -> dict:
     log("[mc] PSNR gain at 1080p (tonemapped, bf16): " + "; ".join(
         f"{preset} " + ", ".join(f"{fam} {g:.4f} dB" for fam, g in res[preset]["other_gains_db"].items())
         for preset in ("kpn-hq", "flagship-mc")))
+    # the bench phase's mc family, in host memory until then so that the
+    # peaks of phases 20-23 measure only their own allocations
+    res["frame"] = ({k: v.cpu() for k, v in noisy.items()}, gt["combined"].cpu())
     del others, mc_frame, gt, noisy
     torch.cuda.empty_cache()
     return res
@@ -3006,29 +3030,35 @@ def counting_frames():
             cls.__call__ = call
 
 
-def _run_tool(name: str, argv: list) -> dict:
-    """tools/<name>.main(argv) in-process on the card (its default device),
-    stdout captured, every launch count set to 0 just before and read just
-    after. Returns {json: its last JSON line, denoisers: [frames, K1] per
+def _run_counted(what: str, call) -> dict:
+    """call() in-process on the card, stdout captured, every launch count
+    set to 0 just before and read just after. Returns {json: the dict call()
+    returned, else the last JSON line it printed, denoisers: [frames, K1] per
     frame denoiser, launches, s, out}."""
-    import importlib
-
-    module = importlib.import_module(f"deepdenoiser_tpu_torch.tools.{name}")
     buf = io.StringIO()
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
     with counting_frames() as records, contextlib.redirect_stdout(buf):
-        rc = module.main(argv)
+        got = call()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = read_launches()
-    if rc != 0:
-        raise AssertionError(f"tools/{name} {' '.join(argv)} returned {rc}: {buf.getvalue()}")
-    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    if not isinstance(got, dict) and got != 0:
+        raise AssertionError(f"{what} returned {got}: {buf.getvalue()}")
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{") and ln.endswith("}")]
     torch.cuda.empty_cache()
-    return {"json": json.loads(lines[-1]) if lines else None, "denoisers": records,
-            "launches": launches, "s": secs, "out": buf.getvalue()}
+    return {"json": got if isinstance(got, dict) else json.loads(lines[-1]) if lines else None,
+            "denoisers": records, "launches": launches, "s": secs, "out": buf.getvalue()}
+
+
+def _run_tool(name: str, argv: list) -> dict:
+    """tools/<name>.main(argv) through _run_counted, on the card (its
+    default device)."""
+    import importlib
+
+    module = importlib.import_module(f"deepdenoiser_tpu_torch.tools.{name}")
+    return _run_counted(f"tools/{name} {' '.join(argv)}", lambda: module.main(argv))
 
 
 def _per_frame(what: str, run: dict, k1_per_frame: list, **other_per_frame) -> int:
@@ -3232,6 +3262,196 @@ def phase_tools(frame: dict, card: dict, kpn_res: dict, multilayer, corpus) -> d
     return res
 
 
+# --------------------------------------------------------------------------
+# the headline benchmark, the roofline, the EXR codec's native path
+# --------------------------------------------------------------------------
+
+BENCH_MS_TOL = 0.03  # the bench's CUDA-event ms against phases 4 and 5's host-clock medians
+BENCH_FAMILIES = ("fourier", "holdout", "holdout2", "mc")
+BENCH_ENDPOINT_KEYS = {"model", "ms", "fps", "weights",
+                       *(f"{m}_{f}" for f in BENCH_FAMILIES for m in ("db", "ssim"))}
+# the speed endpoint's traced-MC column: the Gaussian-trained s2d flagship
+# loses on real Monte-Carlo noise (the JAX package's record: -0.32 dB,
+# docs/STATUS_R5.md:32), so that one gain is required finite, not > 0
+BENCH_GAIN_EXEMPT = {("flagship", "db_mc")}
+ROOFLINE_MODELS = ("kpn-hq", "flagship-hq", "flagship")
+EXR_TURNS = ("numpy", "native", "native", "numpy")
+
+
+def _check_bench(what: str, rec: dict, models: tuple) -> None:
+    """bench's JSON contract on the card: the top keys, status ok, value =
+    the headline fps, vs_baseline = fps / 10, the three endpoints with every
+    key and every gain > 0 (BENCH_GAIN_EXEMPT: finite)."""
+    top = {"metric", "value", "unit", "vs_baseline", "status", "headline", "speed", "mc"}
+    head = rec["headline"]
+    if (not top <= set(rec) or rec["metric"] != "1080p_full_multipass_denoise_throughput"
+            or rec["unit"] != "frames/sec/chip" or rec["status"] != "ok"
+            or rec["value"] != head["fps"] or rec["vs_baseline"] != round(head["fps"] / 10, 3)):
+        raise AssertionError(f"{what}: the record breaks the contract: {rec}")
+    for key, model in zip(("headline", "speed", "mc"), models):
+        obj = rec[key]
+        if set(obj) != BENCH_ENDPOINT_KEYS or obj["model"] != model or obj["weights"] != "release":
+            raise AssertionError(f"{what}: {key} {obj}")
+        if not (obj["ms"] > 0 and obj["fps"] > 0):
+            raise AssertionError(f"{what}: {key} latency {obj}")
+        bad = {k: v for k, v in obj.items() if k.startswith("db_") and not (
+            math.isfinite(v) if (model, k) in BENCH_GAIN_EXEMPT else v > 0)}
+        if bad:
+            raise AssertionError(f"{what}: {key} {model} has no gain: {bad}")
+
+
+def phase_bench(frame: dict, card: dict, kpn_res: dict, hq_res: dict, holdouts,
+                mc_res: dict) -> dict:
+    """tools/bench.main in-process on the card with its defaults (flagship-hq,
+    flagship, flagship-mc) and with --model kpn-hq (8 K1 launches a frame),
+    on the frames the earlier phases made: the Fourier frame, the worker's
+    two 1080p holdouts and phase 19's traced frame (measure takes them
+    ready, as the JAX script's does). The headline ms within 3 % of phases
+    5 and 4's medians in this call."""
+    dev = torch.device("cuda")
+    hold = holdouts.result()
+    frames = {}
+    for fam, (noisy, clean) in (("fourier", (frame["noisy"], frame["clean"]["combined"])),
+                                ("holdout", hold["spheres"][:2]), ("holdout2", hold["boxes"][:2])):
+        frames[fam] = ({k: torch.as_tensor(v, device=dev) for k, v in noisy.items()},
+                       torch.as_tensor(clean, device=dev))
+    noisy, clean = mc_res["frame"]
+    frames["mc"] = ({k: v.to(dev) for k, v in noisy.items()}, clean.to(dev))
+    from deepdenoiser_tpu_torch.tools import bench
+
+    res = {}
+    for label, argv, models, k1, ref in (
+            ("defaults", [], ("flagship-hq", "flagship", "flagship-mc"), [0, 0, 0], hq_res),
+            ("kpn-hq", ["--model", "kpn-hq"], ("kpn-hq", "flagship", "flagship-mc"), [8, 0, 0],
+             kpn_res)):
+        run = _run_counted(f"tools/bench {' '.join(argv)}",
+                           lambda: bench.run(bench.parse_args(argv), frames))
+        _per_frame(f"bench {label}", run, k1)
+        frames_denoised, k1_launches = run["denoisers"][0]  # the headline denoiser, as counted
+        rec = run["json"]
+        _check_bench(f"bench {label}", rec, models)
+        head = rec["headline"]
+        rel = head["ms"] / ref["ms_median"] - 1
+        if abs(rel) > BENCH_MS_TOL:
+            raise AssertionError(f"bench {label}: {head['model']} {head['ms']} ms against the "
+                                 f"phase's {ref['ms_median']:.2f} ({100 * rel:+.1f} %)")
+        res[label] = dict(rec, s=run["s"], k1_per_frame=k1_launches / frames_denoised,
+                          vs_phase=rel)
+        log(f"[bench] {label}: value {rec['value']} fps (vs_baseline {rec['vs_baseline']}); "
+            + "; ".join(f"{key} {rec[key]['model']} {rec[key]['ms']} ms " + ", ".join(
+                f"{f} {rec[key]['db_' + f]:+.2f} dB" for f in BENCH_FAMILIES)
+                for key in ("headline", "speed", "mc"))
+            + f"; headline {100 * rel:+.2f} % against the phase's host-clock median "
+            f"{ref['ms_median']:.2f} ms; K1 a headline frame {res[label]['k1_per_frame']} (counted: "
+            f"{k1_launches} in {frames_denoised} frames; {run['s']:.1f} s) | {card['smi']}")
+    return res
+
+
+def phase_roofline(card: dict) -> dict:
+    """tools/roofline for kpn-hq, flagship-hq and flagship at 1080p with a
+    32 px border (0 < mfu <= 1, 0 < hbm_utilization <= 1.05), and
+    tools/traffic_breakdown --time for kpn-hq (its op table's kpn_apply row
+    holds the frame's 8 launches)."""
+    res = {}
+    for model in ROOFLINE_MODELS:
+        run = _run_tool("roofline", ["--model", model, "--border", "32"])
+        _per_frame(f"roofline {model}", run, [8 if model == "kpn-hq" else 0])
+        frames, k1 = run["denoisers"][0]
+        rep = json.loads(run["out"][run["out"].index("{"):])
+        if not (0 < rep["mfu"] <= 1 and 0 < rep["hbm_utilization"] <= 1.05):
+            raise AssertionError(f"roofline {model}: {rep}")
+        if rep["device"] != card["kind"] or rep["weights"] != "release":
+            raise AssertionError(f"roofline {model}: {rep}")
+        res[model] = dict(rep, k1_per_frame=k1 / frames)
+        log(f"[roofline] {model} 1080p, border 32: {rep['latency_ms']} ms, "
+            f"{rep['gflops_per_frame']} GFLOP and {rep['hbm_gb_per_frame']} GB a frame (counted "
+            f"from the shapes); mfu {rep['mfu']}, hbm_utilization {rep['hbm_utilization']}, "
+            f"speed of light {rep['speed_of_light_ms']} ms (compute {rep['sol_compute_ms']}, "
+            f"HBM {rep['sol_hbm_ms']}), {rep['bound']}-bound | {rep['device']}, power limit "
+            f"{rep['power_limit_w']} W; K1 {k1} in {frames} frames | {card['smi']}")
+    out = WORK / "traffic_breakdown.txt"
+    run = _run_tool("traffic_breakdown", ["--model", "kpn-hq", "--border", "32", "--time",
+                                          "--out", str(out)])
+    lines = run["out"].splitlines()
+    k1_row = [m for ln in lines if (m := re.match(r"\s*kpn_apply\s.*\sx(\d+)\s*$", ln))]
+    k1 = run["launches"]["kpn_apply"]
+    if len(k1_row) != 1 or int(k1_row[0].group(1)) != 8 or k1 < 8 or k1 % 8:
+        raise AssertionError(f"traffic_breakdown kpn-hq: K1 {k1}, op table rows {k1_row}")
+    stage_ms = {m.group(1): float(m.group(2)) for ln in lines
+                if (m := re.match(r"\s+(encode|net|decode\+recompose|FULL pipeline|sum of "
+                                  r"stages)\s+([\d.]+) ms", ln))}
+    if len(stage_ms) != 5:
+        raise AssertionError(f"traffic_breakdown kpn-hq: stage timings {stage_ms}")
+    # the op table's frame: K1's launches as its wrapper counted them
+    res["traffic_breakdown"] = {"stage_ms": stage_ms, "report": str(out.relative_to(ROOT)),
+                                "k1_op_table": int(k1_row[0].group(1))}
+    for ln in lines:
+        log(f"[roofline] traffic_breakdown | {ln}")
+    log(f"[roofline] traffic_breakdown kpn-hq: {k1} K1 launches ({run['s']:.1f} s) | "
+        f"{card['smi']}")
+    return res
+
+
+def _exr_turns(path: Path) -> dict:
+    """The 1080p multilayer EXR at `path` read and written back in turns
+    (EXR_TURNS), the ZIP predictor in numpy (exr_codec's plain versions) or
+    native (data/_native.py): each turn's host seconds, whether its passes
+    and its file equal the first turn's bit for bit. Host work, run in the
+    worker process."""
+    from deepdenoiser_tpu_torch.data import exr, exr_codec
+
+    routes = {"numpy": (exr_codec._zip_split_and_predict_np,
+                        exr_codec._zip_unpredict_and_merge_np),
+              "native": (exr_codec._zip_split_and_predict, exr_codec._zip_unpredict_and_merge)}
+    out_dir = WORK / "exr_turns"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    turns, ref, ref_file = [], None, None
+    try:
+        for i, route in enumerate(EXR_TURNS):
+            exr_codec._zip_split_and_predict, exr_codec._zip_unpredict_and_merge = routes[route]
+            t0 = time.perf_counter()
+            passes = exr.load_multilayer_exr(path)
+            read_s = time.perf_counter() - t0
+            out = out_dir / f"{i}_{route}.exr"
+            t0 = time.perf_counter()
+            exr.save_multilayer_exr(out, passes)
+            write_s = time.perf_counter() - t0
+            data = out.read_bytes()
+            if ref is None:
+                ref, ref_file = passes, data
+            turns.append({
+                "route": route, "read_s": read_s, "write_s": write_s, "bytes": len(data),
+                "passes_equal": set(passes) == set(ref) and all(
+                    passes[k].dtype == ref[k].dtype and passes[k].shape == ref[k].shape
+                    and passes[k].tobytes() == ref[k].tobytes() for k in ref),
+                "file_equal": data == ref_file})
+            out.unlink()
+    finally:
+        exr_codec._zip_split_and_predict, exr_codec._zip_unpredict_and_merge = routes["native"]
+    return {"turns": turns, "source_bytes": path.stat().st_size, "passes": len(ref)}
+
+
+def phase_exr(card: dict, turns) -> dict:
+    """The worker's EXR turns (numpy, native, native, numpy): the native
+    path's passes equal numpy's bit for bit, every written file equal, the
+    seconds of each."""
+    res = turns.result()
+    bad = [t for t in res["turns"] if not (t["passes_equal"] and t["file_equal"])]
+    if bad:
+        raise AssertionError(f"exr: turns differ from the first (numpy) turn: {bad}")
+    for i, t in enumerate(res["turns"]):
+        log(f"[exr] turn {i} {t['route']}: read {t['read_s']:.3f} s, write {t['write_s']:.3f} s "
+            f"({res['passes']} passes, {res['source_bytes']} bytes read, {t['bytes']} written; "
+            f"host clock in the worker process) | {card['smi']}")
+    for route in ("numpy", "native"):
+        sel = [t for t in res["turns"] if t["route"] == route]
+        res[route] = {k: statistics.mean(t[k] for t in sel) for k in ("read_s", "write_s")}
+    log(f"[exr] mean read / write: numpy {res['numpy']['read_s']:.3f} / "
+        f"{res['numpy']['write_s']:.3f} s, native {res['native']['read_s']:.3f} / "
+        f"{res['native']['write_s']:.3f} s; passes and files bit-equal across the turns")
+    return res
+
+
 def _kernel_row(name: str, source: str, replaces: str, launches: int, t: dict,
                 on_path: bool = True, **extra) -> dict:
     """One entry of the kernels line; `on_path`: some entry point's path
@@ -3246,7 +3466,8 @@ def _kernel_row(name: str, source: str, replaces: str, launches: int, t: dict,
     }
 
 
-def _run_phases(phase, card: dict, holdouts, multilayer, corpus, profile: bool) -> tuple:
+def _run_phases(phase, card: dict, holdouts, multilayer, corpus, exr_turns,
+                profile: bool) -> tuple:
     phase("build", phase_build)
     kern = phase("kernels", phase_kernels, card)
     ingest = phase("ingest-kernels", phase_ingest_kernels, card)
@@ -3262,8 +3483,8 @@ def _run_phases(phase, card: dict, holdouts, multilayer, corpus, profile: bool) 
     frame = {"clean": clean, "noisy": noisy, "dir": frame_dir}
     kpn_res = phase("kpn-hq", phase_preset, "kpn-hq", "kpn_hq_ema_f16.npz", frame, card,
                     kernel_launches_per_frame=8, check_fp32=True, profile=profile)
-    phase("flagship-hq", phase_preset, "flagship-hq", "flagship_hq_ema_f16.npz", frame, card,
-          kernel_launches_per_frame=0, check_fp32=False, profile=profile)
+    hq_res = phase("flagship-hq", phase_preset, "flagship-hq", "flagship_hq_ema_f16.npz", frame,
+                   card, kernel_launches_per_frame=0, check_fp32=False, profile=profile)
     max_res = phase("flagship-max", phase_flagship_max, frame, card, profile=profile)
     aux_counts = phase("aux-subsets", phase_aux_subsets, frame, card)
     per_pass_counts = phase("per-pass", phase_per_pass_encode, frame, card)
@@ -3288,8 +3509,12 @@ def _run_phases(phase, card: dict, holdouts, multilayer, corpus, profile: bool) 
     md_res = phase("multi-device", phase_multi_device, frame, card)
     rel_res = phase("release", phase_release, frame, card)
     tools_res = phase("tools", phase_tools, frame, card, kpn_res, multilayer, corpus)
+    bench_res = phase("bench", phase_bench, frame, card, kpn_res, hq_res, holdouts, mc_res)
+    roof_res = phase("roofline", phase_roofline, card)
+    exr_res = phase("exr", phase_exr, card, exr_turns)
     return (kern, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res, feather_res,
-            train_kern, train_res, mc_res, batch_res, md_res, rel_res, tools_res)
+            train_kern, train_res, mc_res, batch_res, md_res, rel_res, tools_res, bench_res,
+            roof_res, exr_res)
 
 
 def main(argv=None) -> int:
@@ -3318,9 +3543,12 @@ def main(argv=None) -> int:
         MULTILAYER_EXR.parent.mkdir(parents=True, exist_ok=True)
         multilayer = pool.submit(_write_multilayer, MULTILAYER_EXR, FRAME_H, FRAME_W)
         corpus = pool.submit(_pipe_corpus, TRAIN_CROP)
-        res = _run_phases(phase, card, holdouts, multilayer, corpus, args.profile)
+        # the EXR codec's turns, after the multilayer EXR is written
+        exr_turns = pool.submit(_exr_turns, MULTILAYER_EXR)
+        res = _run_phases(phase, card, holdouts, multilayer, corpus, exr_turns, args.profile)
     kern, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res, feather_res, \
-        train_kern, train_res, mc_res, batch_res, md_res, rel_res, tools_res = res
+        train_kern, train_res, mc_res, batch_res, md_res, rel_res, tools_res, bench_res, \
+        roof_res, exr_res = res
     log("[time] " + ", ".join(f"{k} {v:.0f}" for k, v in seconds.items()) + " s")
 
     group, tile, train_fwd = kern["group"], kern["tile"], kern["train"]
@@ -3368,6 +3596,10 @@ def main(argv=None) -> int:
             **tools_res["k1_per_frame"],
             "tools/bench_input_pipeline kpn-hq step (fit path, device batches)":
                 tools_res["bench_input_pipeline"]["launches_per_step"]["kpn_apply"],
+            "tools/bench --model kpn-hq frame": bench_res["kpn-hq"]["k1_per_frame"],
+            "tools/roofline kpn-hq frame": roof_res["kpn-hq"]["k1_per_frame"],
+            "tools/traffic_breakdown kpn-hq op table frame":
+                roof_res["traffic_breakdown"]["k1_op_table"],
         },
     )]
     for entry, fn in BWD_ENTRIES.items():
@@ -3469,6 +3701,17 @@ def main(argv=None) -> int:
             tools_res["bench_sequence"]["per_frame_ms_chained"],
             pipe["grain_2dispatch_steps_per_s"], pipe["synth_fused_steps_per_s"],
             sum(tools_res["s"].values())))
+    hb, kb = bench_res["defaults"], bench_res["kpn-hq"]
+    log("[summary] bench: value {} fps; flagship-hq {} ms ({:+.2f} % against phase 5), flagship {}"
+        " ms, flagship-mc {} ms; kpn-hq {} ms ({:+.2f} % against phase 4); roofline mfu / "
+        "hbm_utilization: ".format(hb["value"], hb["headline"]["ms"], 100 * hb["vs_phase"],
+                                   hb["speed"]["ms"], hb["mc"]["ms"], kb["headline"]["ms"],
+                                   100 * kb["vs_phase"])
+        + ", ".join(f"{m} {roof_res[m]['mfu']} / {roof_res[m]['hbm_utilization']}"
+                    for m in ROOFLINE_MODELS)
+        + "; EXR read / write s: numpy {:.3f} / {:.3f}, native {:.3f} / {:.3f}".format(
+            exr_res["numpy"]["read_s"], exr_res["numpy"]["write_s"],
+            exr_res["native"]["read_s"], exr_res["native"]["write_s"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],

@@ -1,9 +1,11 @@
 """Self-contained OpenEXR scanline codec (pure numpy + stdlib zlib).
 
 The PyTorch package's own copy of deepdenoiser_tpu/data/exr_codec.py (the
-port imports nothing of the JAX package); it keeps the numpy ZIP
-predictor only. tests/test_torch_transforms.py holds the two codecs
-bit-equal.
+port imports nothing of the JAX package). The ZIP predictor runs in the
+native host library of data/_native.py (csrc/exr_pack.cpp, built at first
+use); the numpy versions (_zip_*_np) are its plain versions.
+tests/test_torch_transforms.py holds the two codecs bit-equal, and
+tests/test_torch_exr_native.py the native predictor to the numpy one.
 
 The build environment ships no EXR-capable library (cv2 built without
 OpenEXR, no OpenEXR/pyexr/imageio-exr backend), and the reference's data
@@ -42,6 +44,8 @@ from pathlib import Path
 from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
+
+from deepdenoiser_tpu_torch.data import _native
 
 MAGIC = 20000630
 _PT_UINT, _PT_HALF, _PT_FLOAT = 0, 1, 2
@@ -100,12 +104,13 @@ def _zip_split_and_predict_np(data: bytes) -> bytes:
 
 
 def _zip_unpredict_and_merge(data: bytes) -> bytes:
-    """ZIP post-processing (numpy)."""
-    return _zip_unpredict_and_merge_np(data)
+    """ZIP post-processing: one native pass (data/_native.py)."""
+    return _native.unpredict_and_merge(data)
 
 
 def _zip_split_and_predict(data: bytes) -> bytes:
-    return _zip_split_and_predict_np(data)
+    """ZIP preprocessing: one native pass (data/_native.py)."""
+    return _native.split_and_predict(data)
 
 
 def _decompress_block(data: bytes, expected: int, compression: int) -> bytes:

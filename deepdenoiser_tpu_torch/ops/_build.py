@@ -1,17 +1,24 @@
-"""Build the port's CUDA sources with nvcc at first use, and load them.
+"""Build the port's native sources at first use, and load them.
 
-Each `csrc/<name>.cu` is compiled on its own into a shared library with a
-plain C interface, loaded with ctypes (no PyTorch headers, so a build takes
-seconds, not minutes):
+Each `csrc/<name>.cu` is compiled on its own with nvcc into a shared
+library with a plain C interface, loaded with ctypes (no PyTorch headers,
+so a build takes seconds, not minutes):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/<name>-<hash>.so
 
+Each `csrc/<name>.cpp` is host C++ (the EXR codec's byte predictor,
+data/_native.py), built the same way by the host compiler, c++ or g++,
+with native/Makefile's flags: `-O3 -fPIC -shared -std=c++17`.
+
 The output goes to build/torch_kernels/ at the repository root (listed in
 .gitignore), keyed by a hash of the sources and flags, so an edited source
-rebuilds. `build()` starts one nvcc per missing source, all together, and
-waits for them; a failed build raises with nvcc's output. The ptxas report
-(registers, shared memory, spills) is kept beside each library.
+rebuilds. `build()` starts one compiler per missing library, all
+together, and waits for them; each writes to a name of its own process
+and is renamed into place, so processes that build at once (test workers)
+never load a half-written library. A failed build raises with the
+compiler's output. The ptxas report (registers, shared memory, spills) is
+kept beside each CUDA library.
 
 Nothing here runs at import: the CPU tests import every module, and nvcc
 is needed only when a kernel is first launched.
@@ -34,13 +41,23 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def sources() -> list[str]:
-    """Names of every kernel source under csrc/."""
+    """Names of every CUDA kernel source under csrc/."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _source(name: str) -> Path:
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
+def _flags(src: Path) -> tuple:
+    return NVCC_FLAGS if src.suffix == ".cu" else HOST_FLAGS
 
 
 def _nvcc() -> str:
@@ -54,36 +71,48 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (no CUDA toolkit on PATH or CUDA_HOME)")
 
 
+def _cxx() -> str:
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (c++ or g++) on PATH")
+
+
 def library_path(name: str) -> Path:
+    src = _source(name)
     h = hashlib.sha256()
-    for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    for p in [src, *(sorted(CSRC.glob("*.cuh")) if src.suffix == ".cu" else ())]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(src)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
-    """Compile every named source (default: all) that has no up-to-date
-    library, one nvcc each, all started together. Returns name -> path."""
+    """Compile every named source (default: every CUDA source) that has no
+    up-to-date library, one compiler each, all started together. Returns
+    name -> path."""
     names = list(names) if names is not None else sources()
     targets = {n: library_path(n) for n in names}
     todo = {n: t for n, t in targets.items() if not t.exists()}
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
         procs = {}
         for n, t in todo.items():
             tmp = t.with_suffix(f".{os.getpid()}.tmp.so")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-            procs[n] = (tmp, subprocess.Popen(
+            src = _source(n)
+            compiler = _nvcc() if src.suffix == ".cu" else _cxx()
+            cmd = [compiler, *_flags(src), "-o", str(tmp), str(src)]
+            procs[n] = (tmp, compiler, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             ))
         failed = []
-        for n, (tmp, proc) in procs.items():
+        for n, (tmp, compiler, proc) in procs.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                failed.append(f"nvcc failed for csrc/{n}.cu (rc {proc.returncode}):\n{log}")
+                failed.append(f"{Path(compiler).name} failed for csrc/{_source(n).name} "
+                              f"(rc {proc.returncode}):\n{log}")
                 tmp.unlink(missing_ok=True)
                 continue
             todo[n].with_suffix(".log").write_text(log)

@@ -10,6 +10,7 @@ timed region runs between two CUDA events recorded on the current stream
 
 from __future__ import annotations
 
+import subprocess
 import time
 from typing import Callable, List
 
@@ -44,3 +45,21 @@ def per_frame_ms(run: Callable[[], object], chain: int, samples: int, device: to
             run()
 
     return [elapsed_ms(sample, device) / chain for _ in range(samples)]
+
+
+def card_info(device: torch.device) -> dict:
+    """{device, power_limit_w}: the card's name and the power limit that
+    nvidia-smi prints for it (None where nvidia-smi does not answer), or
+    "cpu" and None for the CPU."""
+    if device.type != "cuda":
+        return {"device": "cpu", "power_limit_w": None}
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    limit = None
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader,nounits",
+             f"--id={index}"], capture_output=True, text=True, timeout=30, check=True)
+        limit = float(out.stdout.strip())
+    except (OSError, subprocess.SubprocessError, ValueError):
+        pass
+    return {"device": torch.cuda.get_device_name(index), "power_limit_w": limit}

@@ -742,3 +742,20 @@ def test_recipe_on_the_card_launches_the_kernels_in_its_steps_and_validation(cud
     assert kpn_apply.launches - sum(in_eval) == 2 * 8
     assert kpn_apply.bwd_weights_launches == 2 * 8 and kpn_apply.bwd_noisy_launches == 0
     assert (tmp_path / "run-best" / "2" / "extra.json").is_file()
+
+
+def test_roofline_of_a_kpn_hq_frame_on_the_card(cuda, capsys):
+    """The whole-frame roofline of kpn-hq at 1080p: FLOPs counted from the
+    shapes over the frame's CUDA-event latency, a share of the card's bf16
+    peak in (0, 1]; the frame launches K1 eight times."""
+    import json
+
+    from deepdenoiser_tpu_torch.tools import roofline
+
+    kpn_apply.reset_launches()
+    assert roofline.main(["--model", "kpn-hq", "--border", "32", "--chain", "2"]) == 0
+    out = capsys.readouterr().out
+    rep = json.loads(out[out.index("{"):])
+    assert 0 < rep["mfu"] <= 1 and 0 < rep["hbm_utilization"] <= 1.05
+    assert rep["device"] == torch.cuda.get_device_name(0) and rep["weights"] == "release"
+    assert kpn_apply.launches % 8 == 0 and kpn_apply.launches > 0

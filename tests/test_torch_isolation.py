@@ -63,7 +63,8 @@ def test_importing_every_port_module_leaves_jax_out():
                 "data.synthetic_holdout", "data.synthetic_spheres", "data.synthetic_boxes",
                 "data.draws", "parallel.mesh", "parallel.halo", "parallel.dist",
                 "compat.tensor_bundle", "compat.tf_checkpoint", "compat.goldens",
-                "tools.export_release_weights", "tools.verify_parity", "tools.pretrain_flagship"):
+                "tools.export_release_weights", "tools.verify_parity", "tools.pretrain_flagship",
+                "tools.bench", "tools.roofline", "tools.traffic_breakdown", "data._native"):
         assert f"deepdenoiser_tpu_torch.{new}" in mods
     code = (
         "import importlib, json, sys\n"
