@@ -71,12 +71,15 @@ non-zero:
                  (16,96,96,24) signal and gradient tensors, the joint 1080p
                  plane, k=3, C=1 and C=4, ragged and one-row frames; two
                  launches bitwise equal; the weights as the head hands them
-                 (contiguous (N,H,W,k²)); device times by CUDA-graph replay at
+                 (contiguous (N,H,W,k²)), and d_w returned in that layout,
+                 contiguous; device times by CUDA-graph replay at
                  the training batch (slots 0 and 2, contiguous) and the plane
                  (slot 0, contiguous), useful bytes (the bound) and the bytes
                  of the 32 B sectors and 64 B blocks the views touch, resident
                  blocks per SM, the plain version's time; d_w at slot 0 of 8-
-                 and 16-channel stacks beside the 24
+                 and 16-channel stacks beside the 24; with --parent-csrc DIR,
+                 the planar-d_w kernels built from DIR held bitwise equal and
+                 timed beside, in the same turns
   17. train-parity   one make_train_step step of a small joint KPN (fp32,
                  TF32 off) on the card vs the CPU from the same state and batch:
                  loss and grad_norm within rel 1e-5, parameters within 2 lr,
@@ -181,7 +184,8 @@ non-zero:
   27. one JSON line {"kernels": [...]}; every phase's seconds on [time] lines
   (with --profile, the frame phases and the train steps also print device
   time by kernel, every copy kernel's row and the device's busy share, from
-  torch.profiler)
+  torch.profiler; with --parent-csrc DIR as well, kpn-hq's step is profiled
+  again with DIR's planar d_w and its 8 more copy launches a step checked)
   then the card's name and power limit as nvidia-smi prints them, and last
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -820,9 +824,10 @@ def _gain_db(out_combined, noisy_combined, clean_combined) -> float:
     )
 
 
-def profile_frames(preset: str, run, card: dict, frames: int = 3, top: int = 12) -> None:
+def profile_frames(preset: str, run, card: dict, frames: int = 3, top: int = 12) -> dict:
     """Device time by kernel over `frames` frames (torch.profiler), and the
-    share of the wall time the device was busy."""
+    share of the wall time the device was busy. Returns ms a frame busy and
+    wall, and the copies' launches and ms a frame."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -847,8 +852,12 @@ def profile_frames(preset: str, run, card: dict, frames: int = 3, top: int = 12)
     for e in sorted(copies, key=lambda e: -e.self_device_time_total):
         log(f"[{preset}]   copy {e.self_device_time_total / frames / 1e3:8.3f} ms/frame "
             f"{e.count / frames:6.2f}x  {e.key[:110]}")
-    log(f"[{preset}]   copies in all: {sum(e.self_device_time_total for e in copies) / frames / 1e3:.3f} "
-        f"ms/frame, {sum(e.count for e in copies) / frames:.2f} launches/frame")
+    res = {"busy_ms": busy_us / frames / 1e3, "wall_ms": wall_us / frames / 1e3,
+           "copy_ms": sum(e.self_device_time_total for e in copies) / frames / 1e3,
+           "copy_launches": sum(e.count for e in copies) / frames}
+    log(f"[{preset}]   copies in all: {res['copy_ms']:.3f} ms/frame, {res['copy_launches']:.2f} "
+        "launches/frame")
+    return res
 
 
 def _frame_on_card(frame: dict):
@@ -1581,6 +1590,53 @@ BWD_TIMED = {"train": ((TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3), (0, 2, None)),
              "plane": ((1, PLANE_H, PLANE_W, 3), (0, None))}
 
 
+_planar: dict = {}
+
+
+def planar_backward(csrc: Path) -> dict:
+    """K1's backward entry points of another tree whose d_w kernel writes
+    the planar (N,k²,H,W) layout that came before the head's NHWC one,
+    built from its csrc/ directory (`--parent-csrc`) into build/: entry ->
+    a function taking bwd_weights_cuda's / bwd_noisy_cuda's arguments and
+    returning what that tree's wrapper returned (d_w the (N,H,W,k²) view of
+    the planar result), for timing beside this tree's. Counts no launch."""
+    import ctypes
+
+    from deepdenoiser_tpu_torch.ops import _build, kpn_apply
+
+    if not _planar:
+        out = WORK / "planar_bwd.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(out),
+                               str(csrc / "kpn_apply_bwd.cu")], capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {csrc}/kpn_apply_bwd.cu:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        lib = ctypes.CDLL(str(out))
+
+        def launcher(name, d_w):
+            fn = getattr(lib, name)
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+
+            # the same checks and launch as the package's wrappers, so that
+            # host-clock step times compare the layouts alone
+            def run(a, b, k):  # (noisy, g) for d_w, (g, weights) for d_noisy
+                names = ("noisy", "g") if d_w else ("g", "weights")
+                n, h, w, c = kpn_apply._check(name, dict(zip(names, (a, b))), k)
+                res = torch.empty((n, k * k, h, w) if d_w else (n, h, w, c), device=a.device)
+                strides = (*a.stride(), *(b.stride() if d_w else kpn_apply._w_strides(b)))
+                kpn_apply._launch(name, fn, (a.data_ptr(), b.data_ptr(), res.data_ptr()),
+                                  (n, h, w, c, k), strides, a.device)
+                return res.permute(0, 2, 3, 1) if d_w else res
+            return run
+
+        _planar.update(bwd_weights=launcher("kpn_apply_bwd_weights_f32", True),
+                       bwd_noisy=launcher("kpn_apply_bwd_noisy_f32", False))
+    return _planar
+
+
 def _touched_bytes(t: torch.Tensor, granule: int) -> int:
     """Bytes of the `granule`-byte aligned blocks of device memory that the
     elements of the view `t` lie in (its storage starts 512 B aligned)."""
@@ -1642,18 +1698,24 @@ def _bwd_label(slot, stack=BWD_STACK) -> str:
     return "contiguous" if slot is None else f"slot {slot} of {stack}"
 
 
-def phase_train_kernels(card: dict) -> dict:
+def phase_train_kernels(card: dict, parent_csrc=None) -> dict:
     """K1's two backward entry points against the plain backward: every
     slot view of the training batch's 24-channel tensors, the joint 1080p
     plane, k=3, C=1 and C=4, ragged and narrow frames; each launched twice
-    and the two results bitwise equal. Device time by CUDA-graph replay
-    over buffer sets larger than the L2, in turns, at the training batch
-    (slots 0 and 2, contiguous) and the plane (slot 0, contiguous), with
-    useful and moved bytes, and d_w at slot 0 of 8- and 16-channel stacks
-    (32 and 64 B pixels) to show what the stride costs. Returns entry ->
-    timing at the training batch's slot 0, the others under "cases"."""
+    and the two results bitwise equal, both in the head's layout (d_w a
+    contiguous (N,H,W,k²) tensor, d_noisy (N,H,W,C)). Device time by
+    CUDA-graph replay over buffer sets larger than the L2, in turns, at the
+    training batch (slots 0 and 2, contiguous) and the plane (slot 0,
+    contiguous), with useful and moved bytes, and d_w at slot 0 of 8- and
+    16-channel stacks (32 and 64 B pixels) to show what the stride costs.
+    With `parent_csrc` (planar_backward) that tree's kernels are held
+    bitwise equal to these and timed beside them, in the same turns.
+    Returns entry -> timing at the training batch's slot 0, the others
+    under "cases"."""
     from deepdenoiser_tpu_torch.models import kpn
     from deepdenoiser_tpu_torch.ops import kpn_apply
+
+    parent = planar_backward(parent_csrc) if parent_csrc else {}
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
@@ -1680,8 +1742,17 @@ def phase_train_kernels(card: dict) -> dict:
                                      f"{shape} k={k} ({_bwd_label(slot)})")
             if not torch.equal(first, second):
                 raise AssertionError(f"kpn_apply.{entry}: two launches differ at {shape} k={k}")
+            if not first.is_contiguous() or first.shape != ref.shape:
+                raise AssertionError(f"kpn_apply.{entry} at {shape} k={k}: {tuple(first.shape)} "
+                                     f"strides {first.stride()}, not a contiguous "
+                                     f"{tuple(ref.shape)}")
+            if parent and not torch.equal(first, parent[entry](
+                    *((noisy, g) if entry == "bwd_weights" else (g, weights)), k)):
+                raise AssertionError(f"kpn_apply.{entry} at {shape} k={k}: not bitwise the "
+                                     f"planar kernel's of {parent_csrc}")
         log(f"[train-kernels] {shape} k={k} {_bwd_label(slot)}: " + "; ".join(errs)
-            + "; second launch bitwise equal")
+            + "; second launch bitwise equal; d_w contiguous (N,H,W,k²)"
+            + ("; bitwise the planar kernels'" if parent else ""))
         del noisy, weights, g, got, ref_n, ref_w
     torch.cuda.empty_cache()
 
@@ -1701,12 +1772,16 @@ def phase_train_kernels(card: dict) -> dict:
             work = {e: _bwd_work(e, *bufs[0], k) for e in BWD_ENTRIES}
             sets = max(2, min(16, math.ceil(4 * H100_L2_BYTES / work["bwd_weights"]["bytes"])))
             bufs += [_bwd_inputs(shape, k, gen, slot) for _ in range(sets - 1)]
-            calls = {"bwd_weights": [lambda b=b: kpn_apply.bwd_weights_cuda(b[0], b[2], k)
-                                     for b in bufs],
-                     "bwd_noisy": [lambda b=b: kpn_apply.bwd_noisy_cuda(b[2], b[1], k) for b in bufs]}
-            w1, n1 = graph_ms(calls["bwd_weights"]), graph_ms(calls["bwd_noisy"])
-            n2, w2 = graph_ms(calls["bwd_noisy"]), graph_ms(calls["bwd_weights"])
-            ms = {"bwd_weights": (w1 + w2) / 2, "bwd_noisy": (n1 + n2) / 2}
+            fns = {"bwd_weights": kpn_apply.bwd_weights_cuda, "bwd_noisy": kpn_apply.bwd_noisy_cuda}
+            fns.update({f"parent {e}": fn for e, fn in parent.items()})
+            calls = {e: [(lambda b=b, fn=fn: fn(b[0], b[2], k)) if e.endswith("bwd_weights")
+                         else (lambda b=b, fn=fn: fn(b[2], b[1], k)) for b in bufs]
+                     for e, fn in fns.items()}
+            # in turns, this tree's first and last: w n [pw pn pn pw] n w
+            turns = [*fns, *reversed(fns)]
+            ms = {e: 0.0 for e in fns}
+            for e in turns:
+                ms[e] += graph_ms(calls[e]) / 2
             for entry in BWD_ENTRIES:
                 wk = work[entry]
                 bytes_ms = wk["bytes"] / H100_BYTES_PER_S * 1e3
@@ -1715,7 +1790,7 @@ def phase_train_kernels(card: dict) -> dict:
                     *b, k, entry == "bwd_noisy") for b in bufs], replays=3)
                 t = timings[entry][(path, slot)] = {
                     "shape": list(shape), "k": k, "slot": slot, "stack": BWD_STACK,
-                    "ms": ms[entry], "plain_ms": plain_ms,
+                    "ms": ms[entry], "plain_ms": plain_ms, "parent_ms": ms.get(f"parent {entry}"),
                     "library_ms": None,  # no single PyTorch call computes it
                     "bound_ms": max(bytes_ms, ops_ms),
                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -1734,6 +1809,8 @@ def phase_train_kernels(card: dict) -> dict:
                     f"{wk['moved64'] / (ms[entry] * 1e-3) / 1e12:.2f} TB/s); plain backward "
                     + ("(d_w only)" if entry == "bwd_weights" else "(both gradients)")
                     + f" {plain_ms * 1e3:.1f} us"
+                    + (f"; the planar kernel of {parent_csrc} {t['parent_ms'] * 1e3:.1f} us"
+                       if parent else "")
                     + f"; {resident[entry]} resident blocks/SM; CUDA-graph replay over {sets} "
                     f"buffer sets, in turns | {card['smi']}")
             del bufs, calls
@@ -1958,11 +2035,15 @@ def _k1_in_eval(counts: dict):
         loop._run_eval, loop._log_preview = saved
 
 
-def phase_train(frame: dict, card: dict, profile: bool = False) -> dict:
+def phase_train(frame: dict, card: dict, profile: bool = False, parent_csrc=None) -> dict:
     """kpn-hq trained through the user's commands: synth-data -> prepare-data
     -> train (20 steps, then resumed to 30) -> denoise --checkpoint --ema on
     the 1080p frame; then a fixed-batch overfit check and ms per step of
-    kpn-hq and flagship-hq through make_train_step."""
+    kpn-hq and flagship-hq through make_train_step. With `profile`, device
+    time by kernel of each step, its copies and busy time; with
+    `parent_csrc` too, kpn-hq's step again with that tree's planar d_w
+    (planar_backward): its softmax backward's 8 transposing copies show as
+    8 more copy launches a step."""
     import shutil
 
     from deepdenoiser_tpu_torch import config
@@ -2116,7 +2197,26 @@ def phase_train(frame: dict, card: dict, profile: bool = False) -> dict:
         if preset == "kpn-hq" and not losses[-1] < 0.5 * losses[0]:
             raise AssertionError(f"kpn-hq overfit: loss {losses[0]} -> {losses[-1]}, not below half")
         if profile:
-            profile_frames(f"{label} train step", lambda: step(state, batch), card)
+            prof = profile_frames(f"{label} train step", lambda: step(state, batch), card)
+            if parent_csrc and k1:
+                from deepdenoiser_tpu_torch.ops import kpn_apply
+
+                mine = kpn_apply.bwd_weights_cuda
+                kpn_apply.bwd_weights_cuda = planar_backward(parent_csrc)["bwd_weights"]
+                try:
+                    planar = profile_frames(f"{label} train step, d_w planar ({parent_csrc})",
+                                            lambda: step(state, batch), card)
+                finally:
+                    kpn_apply.bwd_weights_cuda = mine
+                log(f"[train] {label} train step, copies a step: {prof['copy_launches']:.2f} "
+                    f"launches, {prof['copy_ms']:.3f} ms with d_w in the head's layout; "
+                    f"{planar['copy_launches']:.2f}, {planar['copy_ms']:.3f} ms with the planar "
+                    f"d_w of {parent_csrc}; device busy {prof['busy_ms']:.3f} against "
+                    f"{planar['busy_ms']:.3f} ms a step | {card['smi']}")
+                if round(planar["copy_launches"] - prof["copy_launches"]) != k1:
+                    raise AssertionError(f"{label}: {prof['copy_launches']} copies a step, "
+                                         f"{planar['copy_launches']} with the planar d_w; want "
+                                         f"{k1} fewer")
         del state, step
         torch.cuda.empty_cache()
     return res
@@ -3467,7 +3567,7 @@ def _kernel_row(name: str, source: str, replaces: str, launches: int, t: dict,
 
 
 def _run_phases(phase, card: dict, holdouts, multilayer, corpus, exr_turns,
-                profile: bool) -> tuple:
+                profile: bool, parent_csrc) -> tuple:
     phase("build", phase_build)
     kern = phase("kernels", phase_kernels, card)
     ingest = phase("ingest-kernels", phase_ingest_kernels, card)
@@ -3501,9 +3601,9 @@ def _run_phases(phase, card: dict, holdouts, multilayer, corpus, exr_turns,
     phase("multiscale", phase_multiscale, frame, card)
     phase("flags", phase_flags, frame, card)
     phase("sequence", phase_sequence, frame, card)
-    train_kern = phase("train-kernels", phase_train_kernels, card)
+    train_kern = phase("train-kernels", phase_train_kernels, card, parent_csrc)
     phase("train-parity", phase_train_parity, card)
-    train_res = phase("train", phase_train, frame, card, profile=profile)
+    train_res = phase("train", phase_train, frame, card, profile=profile, parent_csrc=parent_csrc)
     mc_res = phase("mc", phase_mc, frame, card, holdouts)
     batch_res = phase("device-batch", phase_device_batch, card, train_res)
     md_res = phase("multi-device", phase_multi_device, frame, card)
@@ -3521,6 +3621,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke run of the PyTorch port on one CUDA card")
     ap.add_argument("--profile", action="store_true",
                     help="also print each preset's device time by kernel (torch.profiler)")
+    ap.add_argument("--parent-csrc", type=Path, default=None,
+                    help="csrc/ of a tree whose K1 backward writes a planar d_w: phase 16 times "
+                         "its kernels beside these, phase 18's --profile counts its step's copies")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     seconds = {}
@@ -3545,7 +3648,8 @@ def main(argv=None) -> int:
         corpus = pool.submit(_pipe_corpus, TRAIN_CROP)
         # the EXR codec's turns, after the multilayer EXR is written
         exr_turns = pool.submit(_exr_turns, MULTILAYER_EXR)
-        res = _run_phases(phase, card, holdouts, multilayer, corpus, exr_turns, args.profile)
+        res = _run_phases(phase, card, holdouts, multilayer, corpus, exr_turns, args.profile,
+                          args.parent_csrc)
     kern, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res, feather_res, \
         train_kern, train_res, mc_res, batch_res, md_res, rel_res, tools_res, bench_res, \
         roof_res, exr_res = res
@@ -3629,8 +3733,9 @@ def main(argv=None) -> int:
             moved64_bound_ms=t["moved64_bound_ms"], buffer_sets=t["buffer_sets"],
             resident_blocks_per_sm=t["resident_blocks_per_sm"],
             stride_probe_ms=t["stride_probe_ms"],
-            cases={name: {key: c[key] for key in ("shape", "slot", "ms", "plain_ms", "bound_ms",
-                                                  "moved32_bound_ms", "moved64_bound_ms")}
+            cases={name: {key: c[key] for key in ("shape", "slot", "ms", "plain_ms", "parent_ms",
+                                                  "bound_ms", "moved32_bound_ms",
+                                                  "moved64_bound_ms")}
                    for name, c in t["cases"].items()},
         ))
     group_t = ingest.pop("group_encode")

@@ -32,49 +32,57 @@
 //
 // Both kernels take every input with element strides (noisy and g as those
 // slot views, w as the head's (N, H, W, k*k) softmax), so nothing is
-// copied before a launch. The cp.async helpers, the window staging and the
-// dispatch of k and c live in kpn_stage.cuh, shared with the forward.
-// C (1..4) and k (3, 5) are template parameters, so staging has
-// compile-time divisors. Staging copies with cp.async (4 bytes,
-// zero-filled outside the frame), all of a block's
-// copies issued before the first is waited for; a row of the window is
-// walked pixel-major, channel-minor, so one warp instruction reads the
-// channels of about 11 neighbouring pixels (a few cache lines at a 96 B
-// stride), and a thread's offsets within a row are the same in every row.
-// Every tile launches its own block: a block that walked several tiles,
-// prefetching the next tile's window while it stored the current one,
-// measured slower at the training batch and at the 1080p plane; the
-// resident blocks overlap one block's loads with another's stores.
+// copied before a launch, and both write their result in the layout the
+// head works in: d_w contiguous (N, H, W, k*k), the layout of the softmax
+// whose backward takes it as it is (the JAX backward's
+// jnp.stack(d_w, axis=-1)), and d_noisy contiguous (N, H, W, C). The
+// cp.async helpers, the window staging and the dispatch of k and c live in
+// kpn_stage.cuh, shared with the forward. C (1..4), k (3, 5) and the tile
+// rows are template parameters, so staging has compile-time divisors. All
+// of a block's copies are issued before the first is waited for. Every
+// tile launches its own block (a block that walked several tiles measured
+// slower when the layout was planar); the resident blocks overlap one
+// block's loads with another's stores. A block is 32 pixels wide and a
+// warp owns a tile row, a lane a pixel: the shared-memory accesses below
+// walk the lanes across x at an odd stride (k*k = 25 or 9 floats a pixel,
+// C = 3) or on neighbouring words, free of bank conflicts. Each warp
+// writes its row's results to its own row of shared memory and stores it
+// as soon as it is done, as contiguous 16 B stores (store_row: shifted
+// where the row start is not 16 B aligned, at most 3 scalar stores at
+// each end): no block barrier after the staging, so one warp's stores
+// overlap the others' arithmetic. Held to one block barrier before its
+// stores, the same d_w took 15.4 us at the training batch's slot 0
+// against 12.7 for the planar kernel it replaces (probe_k1_bwd.py,
+// NVIDIA H100 80GB HBM3, 700 W).
 //
-//   kpn_apply_bwd_weights_f32 (d_w). A block of 64 threads owns a 32x8
-//     tile; each thread 4 neighbouring x of one row. The block stages the
-//     tile's halo'd noisy window and its g values; each thread then writes,
-//     per tap, its 4 dot products over channels (summed in channel order)
-//     as one 16-byte store into the planar (N, k*k, H, W) result; a ragged
-//     edge or a width that is not a multiple of 4 takes scalar stores. The
-//     wrapper returns the (N, H, W, k*k) permuted view; the backward of
-//     the head's softmax over the last axis makes it contiguous, one
-//     transposing copy a slot. No streaming hint on the stores: that copy
-//     reads d_w next, from L2 where it can. 20 blocks are resident per SM
-//     at k=5, C=3 (48 registers; NVIDIA H100 80GB HBM3), so the
-//     training batch's 576 blocks are all resident at once, 4-5 to an SM.
-//     Capping the registers to hold more blocks measured slower.
+//   kpn_apply_bwd_weights_f32 (d_w). A block of 128 threads owns a 32x4
+//     tile. It stages the tile's halo'd noisy window and its g values (4 B
+//     copies through the views' strides, zero outside the frame); each
+//     lane computes its pixel's k*k dot products over channels (summed in
+//     channel order, so the result is bitwise that of the planar kernel)
+//     into the warp's row, 3200 contiguous bytes at k=5, and the warp
+//     stores it. 17.9 KB of shared memory, 10 blocks an SM, so the
+//     training batch's 1152 blocks are all resident at once. 32x8 tiles
+//     (5 an SM) and 32x2 tiles measured slower at the training batch; at
+//     the 1080p plane 32x8 is within 1.3 %. The planar layout it replaces
+//     made the head's softmax backward copy the permuted d_w contiguous:
+//     a transposing copy a slot, 8 a kpn-hq train step, which are gone.
 //
 //   kpn_apply_bwd_noisy_f32 (d_noisy), the gather form of the transpose: a
-//     thread per input pixel in a 32x4 block reads the k*k tap-flipped
-//     neighbours of g*w_t. The block stages its halo'd g window; meanwhile
-//     each thread issues all k*k weight loads, each predicated to 0 outside
-//     the frame rather than skipped by a branch, so all are in flight
-//     before the first multiply. Taps are summed in the order t =
-//     0..k*k-1, as the plain version does; no atomics, so the result is
-//     bitwise the same on every run. The block's (4, 32, C) output goes
-//     through shared memory and out as contiguous 16-byte stores where W*C
-//     is a multiple of 4, not C scalars a pixel at a 12 B stride. The
-//     launch bounds ask for 10 resident blocks per SM (48 registers), so
-//     the training batch's 1152 blocks are all resident at once; 32x4
-//     tiles measured faster there than 32x8 and 32x2 ones, and loading
-//     each weight once faster than staging the weight planes' rows in
-//     16-byte copies.
+//     lane per input pixel of a 32x4 tile reads the k*k tap-flipped
+//     neighbours of g*w_t. The block stages its halo'd g window and its
+//     halo'd weight window, 8 rows of 36 pixels' k*k taps (28.9 KB at
+//     k=5), each row of the head's weights one contiguous run copied in
+//     16 B cp.async copies (stage_taps), zero outside the frame; weights
+//     in another layout (a planar view in the tests) go in 4 B copies
+//     through their strides. Taps are summed in the order t = 0..k*k-1, as
+//     the plain version does; no atomics, so the result is bitwise the
+//     same on every run. 34 KB of shared memory hold 6 blocks an SM, so
+//     the training batch's 1152 blocks run in 1.45 waves, and the window
+//     reads each weight 2.25 times from L2: it measured slower than the
+//     25 weight loads a thread straight from device memory that it
+//     replaces. Staging only the taps each window row feeds (4 B copies,
+//     10 blocks an SM) measured slower still.
 //
 // kpn_apply_bwd_resident_blocks reports each kernel's resident blocks per
 // SM (the occupancy API); chip_smoke.py prints them beside the times.
@@ -85,189 +93,221 @@
 
 namespace {
 
+using kpn::cp_async16;
+using kpn::cp_async4;
 using kpn::cp_async_commit;
 using kpn::cp_async_wait;
 using kpn::dispatch;
+using kpn::misalignment;
 using kpn::stage;
 
-constexpr int BW = 32;                       // tile width, pixels
-constexpr int DW_BH = 8;                     // d_w: tile height
-constexpr int QX = 4;                        // d_w: neighbouring x a thread (one 16 B store)
-constexpr int DW_THREADS = BW / QX * DW_BH;  // 64
-constexpr int DN_BH = 4;                     // d_noisy: tile height
-constexpr int DN_THREADS = BW * DN_BH;       // 128
-constexpr int DN_MIN_BLOCKS = 10;            // d_noisy: resident blocks its launch bounds ask for
+constexpr int BW = 32;        // tile width, pixels: one warp across x
+constexpr int TILE_ROWS = 4;  // tile rows of both kernels, a warp a row
+
+// One warp stores `nel` contiguous floats at g from the shared row s_row,
+// where they start misalignment(g) floats in (so both sides of the body
+// are 16 B aligned): 16 B stores, and at most 3 scalar ones at each end.
+__device__ __forceinline__ void store_row(float* g, const float* s_row, int lane, int nel) {
+  const int mis = misalignment(g);
+  const int head = min((4 - mis) & 3, nel);
+  const int quads = (nel - head) / 4;
+  const int tail = head + 4 * quads;
+  const float* s = s_row + mis;
+  for (int q = lane; q < quads; q += BW) {
+    *reinterpret_cast<float4*>(g + head + 4 * q) =
+        *reinterpret_cast<const float4*>(s + head + 4 * q);
+  }
+  if (lane < head) g[lane] = s[lane];
+  if (lane >= 4 && tail + lane - 4 < nel) g[tail + lane - 4] = s[tail + lane - 4];
+}
 
 // ---------------------------------------------------------------- d_w ----
 
-template <int K, int C>
-__global__ void __launch_bounds__(DW_THREADS)
+template <int K, int C, int BH>
+__global__ void __launch_bounds__(BW * BH)
 kpn_bwd_weights_kernel(const float* __restrict__ noisy, const float* __restrict__ g,
                        float* __restrict__ dw, int h, int w,
                        long long nsn, long long nsy, long long nsx, long long nsc,
                        long long gsn, long long gsy, long long gsx, long long gsc) {
+  constexpr int NT = BW * BH;
+  constexpr int K2 = K * K;
   constexpr int P = K / 2;
-  constexpr int TH = DW_BH + K - 1;
-  constexpr int ROW = (BW + K - 1 + 3) / 4 * 4;  // padded: 16 B aligned rows
-  __shared__ __align__(16) float win[C * TH * ROW];    // halo'd noisy window
-  __shared__ __align__(16) float gs[C * DW_BH * BW];  // the tile's g values
+  constexpr int TW = BW + K - 1;
+  constexpr int TH = BH + K - 1;
+  constexpr int OROW = BW * K2 + 4;  // a result row and up to 3 floats of shift
+  __shared__ __align__(16) float win[C * TH * TW];  // halo'd noisy window
+  __shared__ __align__(16) float gs[C * BH * BW];   // the tile's g values
+  __shared__ __align__(16) float os[BH * OROW];     // the tile's d_w rows
 
   const int n = blockIdx.z;
   const int x0 = blockIdx.x * BW;
-  const int y0 = blockIdx.y * DW_BH;
+  const int y0 = blockIdx.y * BH;
   const int tid = threadIdx.x;
-  stage<C, DW_THREADS, TH, BW + K - 1, ROW>(win, noisy + n * nsn, tid, y0 - P, x0 - P, h, w,
-                                            nsy, nsx, nsc);
-  stage<C, DW_THREADS, DW_BH, BW, BW>(gs, g + n * gsn, tid, y0, x0, h, w, gsy, gsx, gsc);
+  stage<C, NT, TH, TW, TW>(win, noisy + n * nsn, tid, y0 - P, x0 - P, h, w, nsy, nsx, nsc);
+  stage<C, NT, BH, BW, BW>(gs, g + n * gsn, tid, y0, x0, h, w, gsy, gsx, gsc);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
 
-  const int qx = tid % (BW / QX);
-  const int ry = tid / (BW / QX);
-  const int y = y0 + ry;
-  const int x = x0 + qx * QX;
-  if (y >= h || x >= w) return;
-
-  float gv[QX][C];
+  // A warp a row, a lane a pixel: its k*k dot products go to the warp's
+  // own row of os, which the warp stores as soon as it is done (no block
+  // barrier: one warp's stores overlap the others' arithmetic).
+  const int lane = tid % BW;
+  const int ry = tid / BW;
+  float gv[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float4 q = *reinterpret_cast<const float4*>(gs + (c * DW_BH + ry) * BW + qx * QX);
-    gv[0][c] = q.x;
-    gv[1][c] = q.y;
-    gv[2][c] = q.z;
-    gv[3][c] = q.w;
-  }
-  const long long plane = static_cast<long long>(h) * w;
-  float* out = dw + static_cast<long long>(n) * (K * K) * plane + static_cast<long long>(y) * w + x;
-  // every row of a tap plane starts 16 B aligned when W % 4 == 0
-  const bool full = (w % QX) == 0 && x + QX <= w;
-
+  for (int c = 0; c < C; ++c) gv[c] = gs[(c * BH + ry) * BW + lane];
+  float* grow = dw + ((static_cast<long long>(n) * h + y0 + ry) * w + x0) * K2;
+  float* srow = os + ry * OROW;
+  float* op = srow + misalignment(grow) + lane * K2;
 #pragma unroll
   for (int dy = 0; dy < K; ++dy) {
-    // this thread's window row: columns qx*4 .. qx*4+7 of the tile
-    float nv[C][8];
+    float v[C][K];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const float* rp = win + (c * TH + ry + dy) * ROW + qx * QX;
-      const float4 lo = *reinterpret_cast<const float4*>(rp);
-      const float4 hi = *reinterpret_cast<const float4*>(rp + 4);
-      nv[c][0] = lo.x; nv[c][1] = lo.y; nv[c][2] = lo.z; nv[c][3] = lo.w;
-      nv[c][4] = hi.x; nv[c][5] = hi.y; nv[c][6] = hi.z; nv[c][7] = hi.w;
+#pragma unroll
+      for (int dx = 0; dx < K; ++dx) v[c][dx] = win[(c * TH + ry + dy) * TW + lane + dx];
     }
 #pragma unroll
     for (int dx = 0; dx < K; ++dx) {
-      float acc[QX];
+      float acc = gv[0] * v[0][dx];
 #pragma unroll
-      for (int j = 0; j < QX; ++j) {
-        acc[j] = gv[j][0] * nv[0][j + dx];
-#pragma unroll
-        for (int c = 1; c < C; ++c) acc[j] = fmaf(gv[j][c], nv[c][j + dx], acc[j]);
-      }
-      float* op = out + (dy * K + dx) * plane;
-      if (full) {
-        *reinterpret_cast<float4*>(op) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < QX; ++j) {
-          if (x + j < w) op[j] = acc[j];
-        }
-      }
+      for (int c = 1; c < C; ++c) acc = fmaf(gv[c], v[c][dx], acc);
+      op[dy * K + dx] = acc;
     }
   }
+  __syncwarp();
+  if (y0 + ry < h) store_row(grow, srow, lane, min(BW, w - x0) * K2);
 }
 
 // ------------------------------------------------------------ d_noisy ----
 
-template <int K, int C>
-__global__ void __launch_bounds__(DN_THREADS, DN_MIN_BLOCKS)
+// Issue the copies of ROWS rows of COLS pixels' K2 taps, top-left frame
+// pixel (gy0, gx0), of an (H, W, K2) image given by element strides, into
+// [ROWS][ROW] shared memory: tap t of window pixel (r, col) lands at
+// sm[r * ROW + shift[r] + col * K2 + t], zero outside the frame; NT threads,
+// thread `tid`. Where the taps are contiguous (tap stride 1, pixel stride
+// K2: the head's softmax) a row's in-frame pixels are one run of floats:
+// it lands shifted by shift[r] (0..3) floats so that its body goes in 16 B
+// copies, 16 B aligned on both sides, with at most 3 floats at each end in
+// 4 B copies. Other strides take a 4 B copy an element, shift 0.
+// ROW >= COLS * K2 + 3; gx0 < w and gx0 + COLS > 0.
+template <int K2, int NT, int ROWS, int COLS, int ROW>
+__device__ __forceinline__ void stage_taps(float* sm, int* shift, const float* src, int tid,
+                                           int gy0, int gx0, int h, int w, long long st,
+                                           long long sy, long long sx) {
+  if (st != 1 || sx != K2) {
+    for (int i = tid; i < ROWS * COLS * K2; i += NT) {
+      const int r = i / (COLS * K2);
+      const int e = i - r * (COLS * K2);
+      const int col = e / K2;
+      const int gy = gy0 + r;
+      const int gx = gx0 + col;
+      const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
+      cp_async4(sm + r * ROW + e, in ? src + gy * sy + gx * sx + (e - col * K2) * st : src, in);
+    }
+    for (int r = tid; r < ROWS; r += NT) shift[r] = 0;
+    return;
+  }
+  const int ca = max(0, -gx0);  // the in-frame columns ca..cb-1
+  const int cb = min(COLS, w - gx0);
+  const int nel = (cb - ca) * K2;
+  const int edge = (COLS - cb + ca) * K2;  // taps of the columns outside the frame
+  for (int r = 0; r < ROWS; ++r) {
+    const int gy = gy0 + r;
+    float* row = sm + r * ROW;
+    if (gy < 0 || gy >= h) {
+      for (int e = tid; e < COLS * K2; e += NT) row[e] = 0.0f;
+      if (tid == 0) shift[r] = 0;
+      continue;
+    }
+    const float* g = src + gy * sy + (gx0 + ca) * K2;
+    const int mis = misalignment(g);
+    const int sh = (mis - ca * K2) & 3;
+    if (tid == 0) shift[r] = sh;
+    float* s = row + sh + ca * K2;  // s[e] is 16 B aligned where g[e] is
+    const int head = min((4 - mis) & 3, nel);
+    const int quads = (nel - head) / 4;
+    const int tail = head + 4 * quads;
+    for (int q = tid; q < quads; q += NT) cp_async16(s + head + 4 * q, g + head + 4 * q);
+    if (tid < head) cp_async4(s + tid, g + tid, true);
+    if (tid >= 4 && tail + tid - 4 < nel) cp_async4(s + tail + tid - 4, g + tail + tid - 4, true);
+    for (int e = tid; e < edge; e += NT) {
+      row[sh + (e < ca * K2 ? e : cb * K2 + e - ca * K2)] = 0.0f;
+    }
+  }
+}
+
+template <int K, int C, int BH>
+__global__ void __launch_bounds__(BW * BH)
 kpn_bwd_noisy_kernel(const float* __restrict__ g, const float* __restrict__ weights,
                      float* __restrict__ dn, int h, int w,
                      long long gsn, long long gsy, long long gsx, long long gsc,
                      long long wsn, long long wst, long long wsy, long long wsx) {
+  constexpr int NT = BW * BH;
+  constexpr int K2 = K * K;
   constexpr int P = K / 2;
   constexpr int TW = BW + K - 1;
-  constexpr int TH = DN_BH + K - 1;
-  __shared__ __align__(16) float tile[C * TH * TW];
-  __shared__ __align__(16) float outs[DN_BH * BW * C];
+  constexpr int TH = BH + K - 1;
+  constexpr int WROW = (TW * K2 + 6) / 4 * 4;  // a window row of taps and up to 3 floats of shift
+  constexpr int OROW = BW * C + 4;             // an output row and up to 3 floats of shift
+  __shared__ __align__(16) float ws[TH * WROW];      // halo'd weight window
+  __shared__ __align__(16) float gwin[C * TH * TW];  // halo'd g window
+  __shared__ __align__(16) float os[BH * OROW];      // the tile's d_noisy rows
+  __shared__ int shift[TH];
 
   const int n = blockIdx.z;
   const int x0 = blockIdx.x * BW;
-  const int y0 = blockIdx.y * DN_BH;
-  const int tid = threadIdx.y * BW + threadIdx.x;
-  stage<C, DN_THREADS, TH, TW, TW>(tile, g + n * gsn, tid, y0 - P, x0 - P, h, w, gsy, gsx, gsc);
+  const int y0 = blockIdx.y * BH;
+  const int tid = threadIdx.x;
+  stage<C, NT, TH, TW, TW>(gwin, g + n * gsn, tid, y0 - P, x0 - P, h, w, gsy, gsx, gsc);
+  stage_taps<K2, NT, TH, TW, WROW>(ws, shift, weights + n * wsn, tid, y0 - P, x0 - P, h, w,
+                                   wst, wsy, wsx);
   cp_async_commit();
-
-  // All k*k weight loads in flight before the first multiply: tap t of the
-  // output pixel (u+p-dy, v+p-dx) read (u, v); 0 outside the frame.
-  const int v = x0 + threadIdx.x;
-  const int u = y0 + threadIdx.y;
-  const float* wn = weights + n * wsn;
-  float wt[K * K];
-#pragma unroll
-  for (int t = 0; t < K * K; ++t) {
-    const int y = u + P - t / K;
-    const int x = v + P - t % K;
-    const bool in = u < h && v < w && y >= 0 && y < h && x >= 0 && x < w;
-    wt[t] = in ? __ldg(wn + y * wsy + x * wsx + t * wst) : 0.0f;
-  }
   cp_async_wait<0>();
   __syncthreads();
 
+  // Tap t of output pixel (u+p-dy, v+p-dx) read input pixel (u, v): window
+  // pixel (ry + k-1-dy, lane + k-1-dx). A warp a row, a lane a pixel; each
+  // warp stores its row when done.
+  const int lane = tid % BW;
+  const int ry = tid / BW;
   float acc[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) acc[c] = 0.0f;
 #pragma unroll
-  for (int t = 0; t < K * K; ++t) {
-    const float* tp = tile + (threadIdx.y + K - 1 - t / K) * TW + threadIdx.x + K - 1 - t % K;
+  for (int t = 0; t < K2; ++t) {
+    const int r = ry + K - 1 - t / K;
+    const int col = lane + K - 1 - t % K;
+    const float wt = ws[r * WROW + shift[r] + col * K2 + t];
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = fmaf(tp[c * TH * TW], wt[t], acc[c]);
+    for (int c = 0; c < C; ++c) acc[c] = fmaf(gwin[(c * TH + r) * TW + col], wt, acc[c]);
   }
+  float* grow = dn + ((static_cast<long long>(n) * h + y0 + ry) * w + x0) * C;
+  float* srow = os + ry * OROW;
+  float* o = srow + misalignment(grow) + lane * C;
 #pragma unroll
-  for (int c = 0; c < C; ++c) outs[(threadIdx.y * BW + threadIdx.x) * C + c] = acc[c];
-  __syncthreads();
-
-  // Each tile row's pixels are min(BW, w - x0) * C contiguous floats of the
-  // (N, H, W, C) result.
-  const int row_elems = min(BW, w - x0) * C;
-  const bool vec = (static_cast<long long>(w) * C) % 4 == 0;  // rows start 16 B aligned
-  const int quads = row_elems / 4;
-  if (vec) {
-    for (int i = tid; i < DN_BH * quads; i += DN_THREADS) {
-      const int ry = i / quads;
-      const int q = i - ry * quads;
-      if (y0 + ry >= h) continue;
-      float* row = dn + ((static_cast<long long>(n) * h + y0 + ry) * w + x0) * C;
-      *reinterpret_cast<float4*>(row + 4 * q) =
-          *reinterpret_cast<const float4*>(outs + ry * BW * C + 4 * q);
-    }
-  }
-  const int done = vec ? 4 * quads : 0;
-  const int rest = row_elems - done;
-  for (int i = tid; i < DN_BH * rest; i += DN_THREADS) {
-    const int ry = i / rest;
-    const int e = done + i - ry * rest;
-    if (y0 + ry >= h) continue;
-    dn[((static_cast<long long>(n) * h + y0 + ry) * w + x0) * C + e] = outs[ry * BW * C + e];
-  }
+  for (int c = 0; c < C; ++c) o[c] = acc[c];
+  __syncwarp();
+  if (y0 + ry < h) store_row(grow, srow, lane, min(BW, w - x0) * C);
 }
 
 // ------------------------------------------------------------ dispatch ----
 
-template <int K, int C>
+template <int K, int C, int BH>
 cudaError_t launch_weights(const float* noisy, const float* g, float* dw, int n, int h, int w,
                            const long long* s, cudaStream_t stream) {
-  const dim3 grid((w + BW - 1) / BW, (h + DW_BH - 1) / DW_BH, n);
-  kpn_bwd_weights_kernel<K, C><<<grid, DW_THREADS, 0, stream>>>(
+  const dim3 grid((w + BW - 1) / BW, (h + BH - 1) / BH, n);
+  kpn_bwd_weights_kernel<K, C, BH><<<grid, BW * BH, 0, stream>>>(
       noisy, g, dw, h, w, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]);
   return cudaGetLastError();
 }
 
-template <int K, int C>
+template <int K, int C, int BH>
 cudaError_t launch_noisy(const float* g, const float* weights, float* dn, int n, int h, int w,
                          const long long* s, cudaStream_t stream) {
-  const dim3 grid((w + BW - 1) / BW, (h + DN_BH - 1) / DN_BH, n);
-  kpn_bwd_noisy_kernel<K, C><<<grid, dim3(BW, DN_BH), 0, stream>>>(
+  const dim3 grid((w + BW - 1) / BW, (h + BH - 1) / BH, n);
+  kpn_bwd_noisy_kernel<K, C, BH><<<grid, BW * BH, 0, stream>>>(
       g, weights, dn, h, w, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]);
   return cudaGetLastError();
 }
@@ -275,9 +315,9 @@ cudaError_t launch_noisy(const float* g, const float* weights, float* dn, int n,
 template <int K, int C>
 cudaError_t resident(int which, int* blocks) {
   return which == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                          blocks, kpn_bwd_weights_kernel<K, C>, DW_THREADS, 0)
+                          blocks, kpn_bwd_weights_kernel<K, C, TILE_ROWS>, BW * TILE_ROWS, 0)
                     : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                          blocks, kpn_bwd_noisy_kernel<K, C>, DN_THREADS, 0);
+                          blocks, kpn_bwd_noisy_kernel<K, C, TILE_ROWS>, BW * TILE_ROWS, 0);
 }
 
 }  // namespace
@@ -286,7 +326,7 @@ cudaError_t resident(int which, int* blocks) {
 // launch (0 = launched). The caller checks shapes, k and c; k other than 3
 // or 5 and c outside 1..4 return cudaErrorInvalidValue without launching.
 
-// d_w, planar (N, k*k, H, W) contiguous.
+// d_w, (N, H, W, k*k) contiguous.
 extern "C" int kpn_apply_bwd_weights_f32(const float* noisy, const float* g, float* dw,
                                          int n, int h, int w, int c, int k,
                                          long long nsn, long long nsy, long long nsx, long long nsc,
@@ -296,7 +336,8 @@ extern "C" int kpn_apply_bwd_weights_f32(const float* noisy, const float* g, flo
   const long long s[8] = {nsn, nsy, nsx, nsc, gsn, gsy, gsx, gsc};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch(k, c, [&](auto kk, auto cc) {
-    return launch_weights<decltype(kk)::value, decltype(cc)::value>(noisy, g, dw, n, h, w, s, st);
+    constexpr int K = decltype(kk)::value, C = decltype(cc)::value;
+    return launch_weights<K, C, TILE_ROWS>(noisy, g, dw, n, h, w, s, st);
   }));
 }
 
@@ -310,7 +351,8 @@ extern "C" int kpn_apply_bwd_noisy_f32(const float* g, const float* weights, flo
   const long long s[8] = {gsn, gsy, gsx, gsc, wsn, wst, wsy, wsx};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch(k, c, [&](auto kk, auto cc) {
-    return launch_noisy<decltype(kk)::value, decltype(cc)::value>(g, weights, dn, n, h, w, s, st);
+    constexpr int K = decltype(kk)::value, C = decltype(cc)::value;
+    return launch_noisy<K, C, TILE_ROWS>(g, weights, dn, n, h, w, s, st);
   }));
 }
 

@@ -112,7 +112,9 @@ class KernelPredictionHead(nn.Module):
             # with the taps last: a strided slice of feats, which the RMS
             # norm's elementwise ops read in place. The softmax's output is
             # contiguous (N,H,W,k²), the layout the filter-apply kernel
-            # stages in 16-byte copies; nothing is transposed or gathered.
+            # stages in 16-byte copies and the backward kernel writes the
+            # weight gradient in, which the softmax's backward takes as it
+            # is; nothing is transposed or gathered either way.
             logits = feats[..., s * k2 : (s + 1) * k2].float()
             if self.logit_norm:
                 rms = torch.sqrt(torch.mean(logits * logits, dim=-1, keepdim=True) + 1e-8)

@@ -10,8 +10,10 @@ notes are in the CUDA sources.
 
 `apply_per_pixel_kernels(noisy, weights, k)` keeps the JAX signature:
 noisy (N,H,W,C) and per-pixel softmaxed weights (N,H,W,k²), both fp32,
--> (N,H,W,C) fp32. The forward kernel is built for the head's layout, the
-weights contiguous with the taps last; other strides work, at a cost. It
+-> (N,H,W,C) fp32. The kernels are built for the head's layout, the
+weights contiguous with the taps last: the forward and d_noisy stage them
+in 16-byte copies (other strides work, at a cost), and d_w is written in
+it, so the softmax's backward takes d_w with no copy. It
 goes through `KpnApply`, a torch.autograd.Function: tensors on the CPU
 take the plain PyTorch versions (models/kpn.py) forward and backward and
 count no launch; tensors on the card launch the kernels or raise — there
@@ -192,20 +194,20 @@ def apply_cuda(noisy: Tensor, weights: Tensor, kernel_size: int) -> Tensor:
 
 
 def bwd_weights_cuda(noisy: Tensor, g: Tensor, kernel_size: int) -> Tensor:
-    """d_w (N,H,W,k²): a permuted view of the planar (N,k²,H,W) result
-    (the softmax's backward makes it contiguous). Launches on the current
-    stream; no synchronise."""
+    """d_w (N,H,W,k²), contiguous: the layout of the head's softmax, whose
+    backward takes it as it is. Launches on the current stream; no
+    synchronise."""
     global bwd_weights_launches
     k = kernel_size
     n, h, w, c = _check("kpn_apply_bwd_weights", {"noisy": noisy, "g": g}, k)
-    dw = torch.empty((n, k * k, h, w), dtype=torch.float32, device=noisy.device)
+    dw = torch.empty((n, h, w, k * k), dtype=torch.float32, device=noisy.device)
     if dw.numel() == 0:
-        return dw.permute(0, 2, 3, 1)
+        return dw
     _launch("kpn_apply_bwd_weights", _kernel("kpn_apply_bwd", "kpn_apply_bwd_weights_f32"),
             (noisy.data_ptr(), g.data_ptr(), dw.data_ptr()), (n, h, w, c, k),
             (*noisy.stride(), *g.stride()), noisy.device)
     bwd_weights_launches += 1
-    return dw.permute(0, 2, 3, 1)
+    return dw
 
 
 def bwd_noisy_cuda(g: Tensor, weights: Tensor, kernel_size: int) -> Tensor:

@@ -521,7 +521,8 @@ def _backward_matches(noisy, weights, g, k):
     want_noisy, want_w = kpn.apply_per_pixel_kernels_bwd(noisy, weights, g, k, True)
     torch.cuda.synchronize()
     assert d_w[0].shape == want_w.shape and d_noisy[0].shape == want_noisy.shape
-    assert d_noisy[0].is_contiguous() and d_w[0].permute(0, 3, 1, 2).is_contiguous()
+    # both in the head's layout: d_w (N,H,W,k²) as the softmax's backward takes it
+    assert d_noisy[0].is_contiguous() and d_w[0].is_contiguous()
     assert _within(d_w[0], want_w) and _within(d_noisy[0], want_noisy)
     # a second launch is bitwise the same (no atomics, a fixed summation order)
     assert torch.equal(d_w[0], d_w[1]) and torch.equal(d_noisy[0], d_noisy[1])
@@ -559,13 +560,59 @@ def test_kpn_backward_kernels_take_contiguous_weights(cuda):
     _backward_matches(noisy, weights.contiguous(), g, 5)
 
 
+def _device_copies(run) -> tuple:
+    """(copy kernels and memcpys that `run` launches, what it returns)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and ("direct_copy" in e.key or "Memcpy" in e.key)), out
+
+
+def test_kpn_head_backward_makes_no_copy_of_the_weight_gradient(cuda, monkeypatch):
+    """kpn-hq's head (8 slots of 5x5, RMS-normed logits) on the card: the
+    softmax's backward takes d_w as the kernel wrote it. With d_w made
+    planar on purpose (the layout the kernel wrote before) the same
+    backward launches two more copies a slot: the one that makes it
+    planar, and the softmax's transposing copy back."""
+    k, slots = 5, 8
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    feats = torch.randn((2, 24, 40, slots * k * k), generator=gen, device=cuda)
+    signal = torch.rand((2, 24, 40, 3 * slots), generator=gen, device=cuda)
+    cot = torch.randn((2, 24, 40, 3 * slots), generator=gen, device=cuda)
+    head = kpn.KernelPredictionHead(k, slots, logit_norm=True).to(cuda)
+    nhwc = kpn_apply.bwd_weights_cuda
+
+    def planar(noisy, g, kernel_size):
+        return nhwc(noisy, g, kernel_size).permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+
+    copies, grads = {}, {}
+    for name, fn in (("nhwc", nhwc), ("planar", planar)):
+        monkeypatch.setattr(kpn_apply, "bwd_weights_cuda", fn)
+        f = feats.clone().requires_grad_()
+        loss = (head(f, signal) * cot).sum()
+        kpn_apply.reset_launches()
+        # the features' gradient only: no parameter's first accumulation
+        # adds a copy to one run and not the other
+        copies[name], grads[name] = _device_copies(lambda: torch.autograd.grad(loss, f)[0])
+        assert kpn_apply.bwd_weights_launches == slots
+    assert copies["planar"] - copies["nhwc"] == 2 * slots, copies
+    assert torch.equal(grads["nhwc"], grads["planar"])
+
+
 def test_kpn_backward_kernels_fill_the_card_at_the_training_batch(cuda):
-    """At (16,96,96,3), k=5, each kernel's 576 blocks of 32x8 pixels are
-    all resident at once: no partial second wave."""
+    """At (16,96,96,3), k=5, both kernels launch 1152 blocks of 32x4
+    pixels. d_w's are all resident at once: no partial second wave.
+    d_noisy's staged weight window (34 KB) holds 6 blocks an SM: 792 of
+    the 1152 in the first wave, every SM full."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    tiles = 16 * (96 // 8) * (96 // 32)
-    for entry in kpn_apply.BWD_ENTRIES:
-        assert kpn_apply.resident_blocks(entry, 5, 3) * sms >= tiles, entry
+    tiles = 16 * (96 // 4) * (96 // 32)
+    assert kpn_apply.resident_blocks("bwd_weights", 5, 3) * sms >= tiles
+    assert kpn_apply.resident_blocks("bwd_noisy", 5, 3) >= 6
 
 
 @pytest.mark.parametrize("seed", [0, 4, 5, 11])

@@ -2,8 +2,12 @@
 (models/kpn.apply_per_pixel_kernels_bwd) against the JAX package's
 custom_vjp backward (_kpn_pallas_bwd), also on the strided slot views
 that training hands over, and jax.grad of the Pallas apply in
-interpret mode; the autograd function ops/kpn_apply.KpnApply on the CPU;
-and the KPN head's gradients against jax.grad of the JAX head.
+interpret mode; the autograd function ops/kpn_apply.KpnApply on the CPU,
+its gradients (d_w in the head's (N,H,W,k²) layout) against
+_kpn_pallas_bwd; the KPN head's gradients against jax.grad of the JAX
+head, and a 2-slot KPN model's parameter gradients, from parameters
+carried across, against jax.grad of the JAX model (the models' bar,
+max|Δ| <= 1e-4 x max|ref| per parameter).
 
 The backward kernels themselves (csrc/kpn_apply_bwd.cu) run only on the
 card: tests/test_torch_gpu.py and chip_smoke.py hold them to the plain
@@ -17,12 +21,15 @@ import numpy as np
 import pytest
 import torch
 
+from deepdenoiser_tpu.models import factory as jfactory
 from deepdenoiser_tpu.models import kpn as jkpn
 from deepdenoiser_tpu.ops import kpn_pallas
-from deepdenoiser_tpu_torch.models import kpn
+from deepdenoiser_tpu_torch import weights_io
+from deepdenoiser_tpu_torch.models import factory, kpn
 from deepdenoiser_tpu_torch.ops import kpn_apply
 
 ATOL = 1e-5
+MODEL_REL = 1e-4  # models: max|Δ| <= 1e-4 x max|ref| at fp32
 
 
 def _inputs(seed, shape, k):
@@ -160,6 +167,83 @@ def test_inference_mode_runs_only_the_forward():
     with torch.inference_mode():
         out = kpn_apply.apply_per_pixel_kernels(torch.from_numpy(noisy), torch.from_numpy(weights), 5)
     assert not out.requires_grad
+
+
+@pytest.mark.parametrize("k,c,hw,stack,slot", [
+    *[(k, c, (2, 11, 13), None, 0) for k in (3, 5) for c in (1, 3, 4)],
+    (5, 3, (1, 17, 37), None, 0),  # ragged: no multiple of the 32-pixel tile, of 4 or of 8
+    (3, 4, (1, 17, 37), None, 0),
+    (5, 3, (2, 9, 12), 24, 0),     # slot views of the joint model's 24-channel signal
+    (5, 3, (2, 9, 12), 24, 5),     # and of the head output's gradient
+], ids=str)
+def test_kpn_apply_gradients_match_the_custom_vjp_backward(k, c, hw, stack, slot):
+    """KpnApply's gradients through autograd on the CPU: d_w comes back
+    in the head's (N,H,W,k²) layout, contiguous, as the softmax's backward
+    takes it; with a slot view the signal's gradient fills only its
+    channels."""
+    n, h, w = hw
+    rng = np.random.default_rng(k * 100 + c * 10 + slot + h)
+    signal = rng.random((n, h, w, stack or c)).astype(np.float32)
+    grad = rng.standard_normal((n, h, w, stack or c)).astype(np.float32)
+    weights = np.array(jax.nn.softmax(jnp.asarray(
+        rng.standard_normal((n, h, w, k * k)).astype(np.float32)), axis=-1))
+    ch = slice(c * slot, c * (slot + 1))
+    want_n, want_w = kpn_pallas._kpn_pallas_bwd(
+        k, True, (jnp.asarray(signal[..., ch]), jnp.asarray(weights)), jnp.asarray(grad[..., ch]))
+    x = torch.from_numpy(signal).requires_grad_()
+    wt = torch.from_numpy(weights).requires_grad_()
+    out = kpn_apply.apply_per_pixel_kernels(x[..., ch], wt, k)
+    d_x, d_w = torch.autograd.grad(out, (x, wt), grad_outputs=torch.from_numpy(grad)[..., ch])
+    assert tuple(d_w.shape) == (n, h, w, k * k) and d_w.is_contiguous()
+    np.testing.assert_allclose(d_w.numpy(), np.asarray(want_w), atol=ATOL)
+    np.testing.assert_allclose(d_x[..., ch].numpy(), np.asarray(want_n), atol=ATOL)
+    assert int(torch.count_nonzero(d_x)) == int(torch.count_nonzero(d_x[..., ch]))
+
+
+def _random_params(init, *args, seed):
+    """A parameter tree with the structure `init` gives (traced with
+    jax.eval_shape), filled with seeded numpy values: fan-in-scaled conv
+    kernels, small biases and temperatures."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(0), *args)
+
+    def fill(leaf):
+        scale = 1.0 / np.sqrt(np.prod(leaf.shape[:-1])) if len(leaf.shape) == 4 else 0.1
+        return (scale * rng.standard_normal(leaf.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map(fill, shapes)
+
+
+@pytest.mark.parametrize("logit_norm", [True, False])
+@pytest.mark.parametrize("k", [3, 5])
+def test_two_slot_kpn_parameter_gradients_match_jax(k, logit_norm):
+    """A group-mode KPN model (14 -> 6 channels, 2 slots: the `kpn`
+    preset's head on a narrow UNet), fp32 on the CPU, parameters carried
+    across by weights_io: every parameter's gradient of sum(out * cot),
+    through KpnApply's backward and the head's softmax, against jax.grad
+    of the JAX model."""
+    kw = dict(backbone="unet", in_channels=14, out_channels=6, base_width=8, depth=2,
+              kernel_prediction=True, kpn_size=k, kpn_slots=2, kpn_logit_norm=logit_norm,
+              act="leaky_relu")
+    rng = np.random.default_rng(30 + k)
+    x = rng.random((2, 24, 40, 14)).astype(np.float32)
+    cot = rng.standard_normal((2, 24, 40, 6)).astype(np.float32)
+    jmodel = jfactory.build_model(jfactory.ModelConfig(**kw))
+    params = _random_params(jmodel.init, jnp.asarray(x), seed=k)
+
+    def loss(p):
+        return jnp.sum(jmodel.apply(p, jnp.asarray(x)) * jnp.asarray(cot))
+
+    want = weights_io.flatten(jax.tree_util.tree_map(np.asarray, jax.grad(loss)(params)))
+    model = factory.build_model(factory.ModelConfig(**kw))
+    weights_io.load_into(model, params)
+    (model(torch.from_numpy(x)) * torch.from_numpy(cot)).sum().backward()
+    got = weights_io.flatten(weights_io.params_from_state_dict(
+        {name: p.grad for name, p in model.named_parameters()}))
+    assert set(got) == set(want) and any("kernel_temp" in key for key in got) == logit_norm
+    for key, ref in want.items():
+        err, scale = np.abs(got[key] - ref).max(), np.abs(ref).max()
+        assert err <= MODEL_REL * scale, (key, err, scale)
 
 
 @pytest.mark.parametrize("entry", ["bwd_weights_cuda", "bwd_noisy_cuda"])
