@@ -132,7 +132,13 @@ non-zero:
   22. release   the release tooling at full width: the four frozen TF goldens
                  (tests/goldens/tf_compat) read without TensorFlow and forwarded
                  on the card in fp32 (max|d| <= 2e-5; 2 K1 launches, k=3, for
-                 kpn); kpn-hq's release npz through the port's TF writer and
+                 kpn); the four goldens made by the port on the card
+                 (compat/goldens.make: seed-7 init, the port's TF writer, the
+                 fp32 forward) and read back by goldens.check on the card and
+                 on the CPU (max|d| <= 2e-5 each; checkpoint bytes equal to a
+                 CPU make's; make and check seconds; 2 + 2 K1 launches for
+                 kpn); kpn-hq's
+                 release npz through the port's TF writer and
                  reader, bitwise, with the bundle's bytes and the write and read
                  seconds, and the 1080p frame with those weights bitwise equal to
                  the release weights' frame (8 K1 launches); the recipe
@@ -2930,7 +2936,10 @@ def _recipe_run(out: Path, teacher: bool) -> dict:
 
 def phase_release(frame: dict, card: dict) -> dict:
     """The release tooling on the card at full width: (a) the four frozen TF
-    goldens through compat/goldens.check (2 K1 launches for kpn); (b)
+    goldens through compat/goldens.check (2 K1 launches for kpn), then the
+    four goldens made by the port on the card (goldens.make) and read back
+    by goldens.check (2 K1 launches each for kpn), on the card and on the
+    CPU, their checkpoints byte-equal to a CPU make's; (b)
     kpn-hq's release weights through the port's TF writer and reader,
     bitwise, and the 1080p frame with them bitwise equal to the release
     weights' frame; (c) tools/pretrain_flagship.py: kpn-hq from the release
@@ -2964,6 +2973,45 @@ def phase_release(frame: dict, card: dict) -> dict:
     log("[release] TF goldens on the card (fp32, TF32 off), max|d| against io.npz y, limit "
         f"{goldens.ATOL:g}: " + ", ".join(f"{f} {r['max_abs_dev']:.3e} ({r['kpn_apply']} K1)"
                                           for f, r in res["goldens"].items()))
+
+    # (a') the goldens made by the port on the card (goldens.make: init from
+    # seed 7, the port's TF writer, the fp32 forward), read back by its check
+    made = work / "made"
+    res["made"] = {}
+    for fam in sorted(goldens.GOLDEN_CFGS):
+        reset_launches()
+        t0 = time.perf_counter()
+        goldens.make(fam, made / fam, device="cuda")
+        torch.cuda.synchronize()
+        make_s = time.perf_counter() - t0
+        make_launches = read_launches()
+        reset_launches()
+        t0 = time.perf_counter()
+        dev = goldens.check(fam, indir=made, device="cuda")
+        torch.cuda.synchronize()
+        check_s = time.perf_counter() - t0
+        check_launches = read_launches()
+        for what, launches in (("make", make_launches), ("check", check_launches)):
+            expect_launches(f"made golden {fam}, {what}", launches,
+                            kpn_apply=2 if fam == "kpn" else 0)
+        # held independently of the card: the card-made y against the CPU's
+        # forward of the same checkpoint (the plain filter apply, no cuDNN),
+        # and the checkpoint's bytes against a CPU make's
+        cpu_dev = goldens.check(fam, indir=made, device="cpu")
+        goldens.make(fam, work / "made_cpu" / fam, device="cpu")
+        for name in ("model.ckpt.index", "model.ckpt.data-00000-of-00001"):
+            if (made / fam / name).read_bytes() != (work / "made_cpu" / fam / name).read_bytes():
+                raise AssertionError(f"made golden {fam}: {name} made on the card != the CPU's")
+        res["made"][fam] = {"max_abs_dev": dev, "max_abs_dev_cpu": cpu_dev, "make_s": make_s,
+                            "check_s": check_s,
+                            "kpn_apply": make_launches["kpn_apply"] + check_launches["kpn_apply"]}
+    log("[release] TF goldens made by the port on the card (goldens.make, fp32, TF32 off), "
+        f"max|d| of the made y, limit {goldens.ATOL:g}, against goldens.check on the card / on "
+        "the CPU (plain K1, no cuDNN; checkpoint bytes == a CPU make's): "
+        + ", ".join(f"{f} {r['max_abs_dev']:.3e} / {r['max_abs_dev_cpu']:.3e} (make "
+                    f"{r['make_s']:.3f} s, check {r['check_s']:.3f} s, {r['kpn_apply']} K1)"
+                    for f, r in res["made"].items())
+        + f" | {card['smi']}")
 
     # (b) kpn-hq's release weights through a TF checkpoint and back
     cfg = config.validate_channels(config.PRESETS["kpn-hq"])
@@ -3692,6 +3740,7 @@ def main(argv=None) -> int:
             f"kpn-hq train step, each of {DP_RANKS} data-parallel ranks":
                 md_res["dp_step"]["launches_per_step"]["kpn_apply"],
             "kpn TF golden (k=3, 2 slots)": rel_res["goldens"]["kpn"]["kpn_apply"],
+            "kpn TF golden made by the port (k=3, 2 slots)": rel_res["made"]["kpn"]["kpn_apply"],
             "kpn-hq frame with TF round-tripped weights": rel_res["tf"]["kpn_apply"],
             "kpn-hq recipe step, teacher flagship-hq":
                 rel_res["recipe"]["teacher"]["launches_per_step"]["kpn_apply"],
@@ -3792,6 +3841,9 @@ def main(argv=None) -> int:
     rt, rp = rel_res["recipe"]["teacher"], rel_res["recipe"]["plain"]
     log("[summary] release: goldens max|d| " + ", ".join(
         f"{f} {r['max_abs_dev']:.2e}" for f, r in rel_res["goldens"].items())
+        + "; made by the port (card / CPU check) " + ", ".join(
+            f"{f} {r['max_abs_dev']:.2e} / {r['max_abs_dev_cpu']:.2e}"
+            for f, r in rel_res["made"].items())
         + "; kpn-hq TF checkpoint {} bytes, write {:.3f} s, read {:.3f} s; recipe {:.2f} ms/step "
         "with the teacher, {:.2f} without, peak {:.2f} GiB; export {} bytes, gain {:.4f} dB".format(
             rel_res["tf"]["bytes"], rel_res["tf"]["write_s"], rel_res["tf"]["read_s"], rt["ms"],

@@ -730,6 +730,27 @@ def test_tf_goldens_hold_on_the_card(cuda, fam):
     assert kpn_apply.launches == (2 if fam == "kpn" else 0)
 
 
+@pytest.mark.parametrize("fam", ["kpn", "multiscale", "tiramisu", "unet"])
+def test_goldens_made_on_the_card_hold_on_the_card(cuda, fam, tmp_path):
+    """goldens.make on the card (fp32, TF32 off), read back by goldens.check
+    on the card; the kpn family launches the filter apply twice in each.
+    The card's y holds against the CPU's forward of the same checkpoint
+    (the plain filter apply, no cuDNN), and the checkpoint's bytes are a
+    CPU make's."""
+    from deepdenoiser_tpu_torch.compat import goldens
+
+    kpn_apply.reset_launches()
+    goldens.make(fam, tmp_path / "card" / fam)
+    assert kpn_apply.launches == (2 if fam == "kpn" else 0)
+    assert goldens.check(fam, indir=tmp_path / "card", device=cuda) <= goldens.ATOL
+    assert kpn_apply.launches == (4 if fam == "kpn" else 0)
+    assert goldens.check(fam, indir=tmp_path / "card", device="cpu") <= goldens.ATOL
+    goldens.make(fam, tmp_path / "cpu" / fam, device="cpu")
+    for name in ("model.ckpt.index", "model.ckpt.data-00000-of-00001"):
+        assert ((tmp_path / "card" / fam / name).read_bytes()
+                == (tmp_path / "cpu" / fam / name).read_bytes()), name
+
+
 def test_tf_bundle_round_trip_of_release_weights_on_the_card(cuda, tmp_path):
     """kpn-hq's release weights through the port's TF writer and reader are
     bit-equal, and so is the model's output on the card (8 launches each)."""
