@@ -1,0 +1,14 @@
+"""Share of the traced window in which no kernel, copy or memset ran on
+the card (train cells)."""
+
+from h100_bench import readers
+
+UNIT, BETTER, SOURCE = "%", "lower", "device_trace"
+LAYER = "device"
+MOVES = "train_samples_per_s"
+
+
+def read(run):
+    if run.cell.traffic["driver"] != "train":
+        return None
+    return readers.idle_pct(run)
