@@ -35,7 +35,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 import torch
 
 from deepdenoiser_tpu_torch import device as device_lib
-from deepdenoiser_tpu_torch import passes, transforms, weights_io
+from deepdenoiser_tpu_torch import passes, tracing, transforms, weights_io
 from deepdenoiser_tpu_torch.config import InferenceConfig
 from deepdenoiser_tpu_torch.inference import tiled
 from deepdenoiser_tpu_torch.models import factory
@@ -134,31 +134,36 @@ class JointFrameDenoiser:
 
     @torch.inference_mode()
     def __call__(self, pass_dict: Mapping[str, Any]) -> Dict[str, Tensor]:
-        given = _to_device(pass_dict, self.device)
-        pd = dict(given)
-        present = self.groups
-        h, w = self.grid.height, self.grid.width
-        if self.use_flags:
-            present = tuple(g for g in self.groups
-                            if all(nm in given for nm in passes.group_passes(g)))
-            for g in self.groups:
-                if g not in present:
-                    for nm in passes.group_passes(g):
-                        pd[nm] = torch.zeros((h, w, 3), dtype=torch.float32, device=self.device)
-        enc = transforms.encode_joint_inputs(pd, self.groups, self.aux, scales=self.scales)
-        if self.use_flags:
-            bits = torch.tensor([1.0 if g in present else 0.0 for g in self.groups],
-                                dtype=torch.float32, device=self.device)
-            enc = torch.cat((enc, bits.expand(h, w, len(self.groups))), dim=-1)
-        dec = self.frame_fn(enc)
-        decoded = transforms.decode_joint_outputs(dec, pd, self.groups, scales=self.scales)
-        out: Dict[str, Tensor] = {}
-        for g in present:
-            d_name, i_name, c_name = passes.group_passes(g)
-            out[d_name] = decoded[d_name]
-            out[i_name] = decoded[i_name]
-            out[c_name] = given[c_name]
-        return _with_passthrough(out, given, present)
+        with tracing.span("frame"):
+            given = _to_device(pass_dict, self.device)
+            pd = dict(given)
+            present = self.groups
+            h, w = self.grid.height, self.grid.width
+            with tracing.span("encode"):
+                if self.use_flags:
+                    present = tuple(g for g in self.groups
+                                    if all(nm in given for nm in passes.group_passes(g)))
+                    for g in self.groups:
+                        if g not in present:
+                            for nm in passes.group_passes(g):
+                                pd[nm] = torch.zeros((h, w, 3), dtype=torch.float32,
+                                                     device=self.device)
+                enc = transforms.encode_joint_inputs(pd, self.groups, self.aux, scales=self.scales)
+                if self.use_flags:
+                    bits = torch.tensor([1.0 if g in present else 0.0 for g in self.groups],
+                                        dtype=torch.float32, device=self.device)
+                    enc = torch.cat((enc, bits.expand(h, w, len(self.groups))), dim=-1)
+            with tracing.span("net"):
+                dec = self.frame_fn(enc)
+            with tracing.span("decode"):
+                decoded = transforms.decode_joint_outputs(dec, pd, self.groups, scales=self.scales)
+                out: Dict[str, Tensor] = {}
+                for g in present:
+                    d_name, i_name, c_name = passes.group_passes(g)
+                    out[d_name] = decoded[d_name]
+                    out[i_name] = decoded[i_name]
+                    out[c_name] = given[c_name]
+                return _with_passthrough(out, given, present)
 
 
 def make_joint_frame_denoiser(
@@ -223,16 +228,21 @@ class GroupFrameDenoiser:
 
     @torch.inference_mode()
     def __call__(self, pass_dict: Mapping[str, Any]) -> Dict[str, Tensor]:
-        pd = _to_device(pass_dict, self.device)
-        dec = self.frame_fn(self.encode(pd))  # (G, H, W, 6) log-demod direct+indirect
-        out: Dict[str, Tensor] = {}
-        for i, g in enumerate(self.groups):
-            d_name, i_name, c_name = passes.group_passes(g)
-            decoded = transforms.decode_group_outputs(dec[i], pd[c_name], scales=self.scales)
-            out[d_name] = decoded["direct"]
-            out[i_name] = decoded["indirect"]
-            out[c_name] = pd[c_name]
-        return _with_passthrough(out, pd, self.groups)
+        with tracing.span("frame"):
+            pd = _to_device(pass_dict, self.device)
+            with tracing.span("encode"):
+                enc = self.encode(pd)
+            with tracing.span("net"):
+                dec = self.frame_fn(enc)  # (G, H, W, 6) log-demod direct+indirect
+            with tracing.span("decode"):
+                out: Dict[str, Tensor] = {}
+                for i, g in enumerate(self.groups):
+                    d_name, i_name, c_name = passes.group_passes(g)
+                    decoded = transforms.decode_group_outputs(dec[i], pd[c_name], scales=self.scales)
+                    out[d_name] = decoded["direct"]
+                    out[i_name] = decoded["indirect"]
+                    out[c_name] = pd[c_name]
+                return _with_passthrough(out, pd, self.groups)
 
 
 def make_group_frame_denoiser(
@@ -281,9 +291,14 @@ class RgbFrameDenoiser:
 
     @torch.inference_mode()
     def __call__(self, pass_dict: Mapping[str, Any]) -> Dict[str, Tensor]:
-        pd = _to_device(pass_dict, self.device)
-        enc = transforms.encode_rgb_inputs(pd, self.aux, self.albedo_key, scales=self.scales)
-        return {"combined": transforms.decode_rgb_outputs(self.frame_fn(enc), self.scales)}
+        with tracing.span("frame"):
+            pd = _to_device(pass_dict, self.device)
+            with tracing.span("encode"):
+                enc = transforms.encode_rgb_inputs(pd, self.aux, self.albedo_key, scales=self.scales)
+            with tracing.span("net"):
+                dec = self.frame_fn(enc)
+            with tracing.span("decode"):
+                return {"combined": transforms.decode_rgb_outputs(dec, self.scales)}
 
 
 def make_rgb_frame_denoiser(

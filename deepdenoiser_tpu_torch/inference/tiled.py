@@ -37,7 +37,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deepdenoiser_tpu_torch import tracing
+
 Tensor = torch.Tensor
+
+# Network calls made by the tiled applies since the last reset: one a
+# chunk of tiles, or one for a whole plane or batch of planes (a plain
+# count; `net` adds one where it calls the network and nowhere else).
+net_calls = 0
+
+
+def reset_net_calls() -> None:
+    global net_calls
+    net_calls = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -186,7 +198,10 @@ def make_tiled_apply(apply_fn: Callable[[Tensor], Tensor], grid: TileGrid,
     hp = grid.halo
 
     def net(tiles: Tensor) -> Tensor:
-        y = apply_fn(tiles)
+        global net_calls
+        with tracing.span("chunk"):
+            y = apply_fn(tiles)
+        net_calls += 1
         if out_channels is not None and y.shape[-1] != out_channels:
             raise ValueError(f"network returned {y.shape[-1]} channels, want {out_channels}")
         return y

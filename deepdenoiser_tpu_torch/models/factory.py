@@ -19,6 +19,7 @@ from typing import List, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from deepdenoiser_tpu_torch import tracing
 from deepdenoiser_tpu_torch.models import kpn, layers, multiscale
 from deepdenoiser_tpu_torch.models.tiramisu import Tiramisu, TiramisuSpec
 from deepdenoiser_tpu_torch.models.unet import UNet, UNetSpec
@@ -116,21 +117,23 @@ class DenoiserModel(nn.Module):
                         signal = layers.avg_downsample(signal, 2)
                 outs = fixed
             return outs
-        x = x.contiguous()  # the signal slices below need channel stride 1
-        out = self.net(x)
-        if cfg.kernel_prediction:
-            # KPN filters the encoded (log-demod) signal channels. Joint
-            # mode: slot order g0_d, g0_i, g1_d, ... as decode_joint_outputs
-            # expects. Group and rgb mode: the leading 3*kpn_slots channels
-            # (the convention of encode_group_inputs / encode_rgb_inputs).
-            if cfg.out_channels == 24:
-                signal = _slice_signal(cfg, x)
-            else:
-                signal = x[..., : 3 * cfg.kpn_slots]
-            return self.KernelPredictionHead_0(out, signal)
-        if cfg.predict_residual:
-            out = out + _slice_signal(cfg, x).to(out.dtype)
-        return out
+        with tracing.span("backbone"):
+            x = x.contiguous()  # the signal slices below need channel stride 1
+            out = self.net(x)
+        with tracing.span("head"):
+            if cfg.kernel_prediction:
+                # KPN filters the encoded (log-demod) signal channels. Joint
+                # mode: slot order g0_d, g0_i, g1_d, ... as decode_joint_outputs
+                # expects. Group and rgb mode: the leading 3*kpn_slots channels
+                # (the convention of encode_group_inputs / encode_rgb_inputs).
+                if cfg.out_channels == 24:
+                    signal = _slice_signal(cfg, x)
+                else:
+                    signal = x[..., : 3 * cfg.kpn_slots]
+                return self.KernelPredictionHead_0(out, signal)
+            if cfg.predict_residual:
+                out = out + _slice_signal(cfg, x).to(out.dtype)
+            return out
 
 
 def _slice_signal(cfg: ModelConfig, x: Tensor) -> Tensor:

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deepdenoiser_tpu_torch import tracing
 from deepdenoiser_tpu_torch.ops import kpn_apply
 
 Tensor = torch.Tensor
@@ -120,9 +121,9 @@ class KernelPredictionHead(nn.Module):
                 rms = torch.sqrt(torch.mean(logits * logits, dim=-1, keepdim=True) + 1e-8)
                 logits = logits / rms * taus[s]
             weights = torch.softmax(logits, dim=-1)
-            outs.append(
-                self.filter_apply(signal[..., 3 * s : 3 * (s + 1)].float(), weights, self.kernel_size)
-            )
+            slot = signal[..., 3 * s : 3 * (s + 1)].float()
+            with tracing.span("k1"):
+                outs.append(self.filter_apply(slot, weights, self.kernel_size))
         return torch.cat(outs, dim=-1)
 
 
