@@ -27,7 +27,13 @@ non-zero:
                  shape its time beside useful and moved bytes, the bound,
                  tile rows and resident blocks per SM, the plain version's
                  time, and at the training batch a launch that only writes
-                 the output (the floor of a launch that size); the five per-pass
+                 the output (the floor of a launch that size); the KPN head's
+                 norm-and-softmax kernel vs its plain version (1e-6 +
+                 1e-4*|ref|) on every slot view at the three frame cells'
+                 shapes, k=3, the norm off, ragged and cropped views, its
+                 time beside useful and moved bytes and the plain chain's,
+                 one launch a slot of a head and none of the chain's kernels;
+                 the five per-pass
                  fused-ingest kernels and the whole-pixel group encode vs
                  theirs at 1080p, batched and ragged shapes, for every aux
                  subset (1e-6 + 1e-6*|ref|); device times by CUDA-graph
@@ -329,17 +335,19 @@ def deterministic_convs():
 
 
 def reset_launches() -> None:
-    from deepdenoiser_tpu_torch.ops import fused_ingest, kpn_apply
+    from deepdenoiser_tpu_torch.ops import fused_ingest, kpn_apply, kpn_softmax
 
     kpn_apply.reset_launches()
+    kpn_softmax.reset_launches()
     fused_ingest.reset_launches()
 
 
 def read_launches() -> dict:
-    from deepdenoiser_tpu_torch.ops import fused_ingest, kpn_apply
+    from deepdenoiser_tpu_torch.ops import fused_ingest, kpn_apply, kpn_softmax
 
     return {"kpn_apply": kpn_apply.launches, "kpn_apply_bwd_weights": kpn_apply.bwd_weights_launches,
-            "kpn_apply_bwd_noisy": kpn_apply.bwd_noisy_launches, **fused_ingest.launches}
+            "kpn_apply_bwd_noisy": kpn_apply.bwd_noisy_launches,
+            "kpn_softmax": kpn_softmax.launches, **fused_ingest.launches}
 
 
 def expect_launches(what: str, got: dict, frames: int = 1, **per_frame: int) -> None:
@@ -553,6 +561,139 @@ def phase_kernels(card: dict) -> dict:
     torch.cuda.empty_cache()
     return {**timings["joint"], "group": timings["group"], "tile": timings["tile"],
             "train": timings["train"], "max_abs_err": worst}
+
+
+# The KPN head's norm-and-softmax kernel at the frame cells' network calls:
+# (path, (N, H, W), channels of the backbone output the slots are cut from)
+SOFTMAX_PATHS = [("kpn-hq 1080p", (1, PLANE_H, PLANE_W), 200),
+                 ("flagship-max 1080p", (4, PLANE_H, PLANE_W), 50),
+                 ("kpn-hq 4K tile batch", (TILE_BATCH, NET_TILE, NET_TILE), 200)]
+# |d| <= abs + rel*|ref|: the same fp32 operations, the sums in another
+# order; exp carries z's rounding (|z| up to tau*k = 80) into the weight
+SOFTMAX_TOL_ABS, SOFTMAX_TOL_REL = 1e-6, 1e-4
+
+
+def _softmax_case(lead, channels, k, norm, gen, crop=False):
+    """Backbone logits (lead, channels) on the card, 3x a unit normal, and
+    the slots' temperatures in (0, 16), or None without the norm; `crop`
+    cuts the frame's border off, so N, H and W strides no longer merge."""
+    feats = 3 * torch.randn((*lead, channels), generator=gen, device="cuda")
+    if crop:
+        feats = feats[:, 1:-2, 3:-1, :]
+    slots = channels // (k * k)
+    taus = None
+    if norm:
+        taus = 16 * torch.sigmoid(2 * torch.randn((slots,), generator=gen, device="cuda"))
+    return feats, taus, slots
+
+
+def _softmax_err(what: str, got, ref) -> float:
+    err = (got - ref).abs()
+    bad = int((err > SOFTMAX_TOL_ABS + SOFTMAX_TOL_REL * ref.abs()).sum())
+    if bad or got.shape != ref.shape or not got.is_contiguous() or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: {bad} weights over tolerance, max|d|={float(err.max()):.3e}")
+    return float(err.max())
+
+
+def phase_kpn_softmax(card: dict) -> dict:
+    """The KPN head's RMS norm, temperature and softmax kernel
+    (ops/kpn_softmax.py) against its plain version: every slot at the three
+    frame cells' shapes, k=3 (the kpn golden's 2 slots), the norm off,
+    ragged and cropped views; two launches bitwise equal; at each path
+    shape its time by CUDA events over the slots in turn beside useful and
+    moved bytes, and the plain chain's time; the launches of a kpn-hq and a
+    flagship-max head on the card, and none of the plain chain's kernels."""
+    from deepdenoiser_tpu_torch.models import kpn
+    from deepdenoiser_tpu_torch.ops import kpn_softmax
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    kpn_softmax.reset_launches()
+    launched = 0
+    worst = 0.0
+    timings = {}
+    checks = [(path, lead, ch, 5, True, False) for path, lead, ch in SOFTMAX_PATHS] + [
+        (None, (1, 64, 64), 18, 3, True, False), (None, (3, 37, 53), 18, 3, False, False),
+        (None, (2, 23, 41), 200, 5, False, False), (None, (2, 40, 72), 200, 5, True, True),
+        (None, (1, 1, 5), 25, 5, True, False)]
+    for path, lead, channels, k, norm, crop in checks:
+        feats, taus, slots = _softmax_case(lead, channels, k, norm, gen, crop)
+        k2 = k * k
+        views = [feats[..., s * k2 : (s + 1) * k2] for s in range(slots)]
+        err = 0.0
+        tau = [None if taus is None else taus[s] for s in range(slots)]
+        for s, logits in enumerate(views):
+            got = kpn_softmax.softmax_cuda(logits, tau[s])
+            again = kpn_softmax.softmax_cuda(logits, tau[s])
+            launched += 2
+            ref = kpn_softmax.softmax_plain(logits, tau[s])
+            torch.cuda.synchronize()
+            err = max(err, _softmax_err(f"kpn_softmax {tuple(logits.shape)} slot {s}", got, ref))
+            if not torch.equal(got, again):
+                raise AssertionError(f"kpn_softmax: two launches differ at {tuple(logits.shape)}")
+            del got, again, ref
+        worst = max(worst, err)
+        log(f"[kpn-softmax] {tuple(views[0].shape)} k={k} of a {channels}-channel output "
+            f"({slots} slots{', cropped' if crop else ''}), norm {'on' if norm else 'off'}: "
+            f"max|d|={err:.3e}")
+        if path:
+            n, h, w = views[0].shape[:3]
+            px = n * h * w
+            calls = [lambda s=s, lg=lg: kpn_softmax.softmax_cuda(lg, tau[s])
+                     for s, lg in enumerate(views)]
+            before = kpn_softmax.launches
+            kernel_ms = cuda_ms(rotating(calls), iters=10 * len(calls))
+            launched += kpn_softmax.launches - before
+            plain_ms = cuda_ms(rotating([lambda s=s, lg=lg: kpn_softmax.softmax_plain(lg, tau[s])
+                                         for s, lg in enumerate(views)]), iters=2 * len(calls))
+            useful = 2 * px * k2 * 4  # the slot's logits read once, the weights written once
+            moved = {g: _moved_bytes(views[-1], g) + px * k2 * 4 for g in (32, 64)}
+            timing = timings[path] = {
+                "shape": list(views[0].shape), "k": k, "slots": slots, "ms": kernel_ms,
+                "plain_ms": plain_ms, "bytes": useful, "flops": 0, "bound_by": "bytes",
+                "bound_ms": useful / H100_BYTES_PER_S * 1e3,
+                "moved32": moved[32], "moved64": moved[64],
+                "moved32_bound_ms": moved[32] / H100_BYTES_PER_S * 1e3,
+                "moved64_bound_ms": moved[64] / H100_BYTES_PER_S * 1e3, "max_abs_err": err,
+            }
+            log(f"[kpn-softmax] {path} {tuple(views[0].shape)}: {kernel_ms * 1e3:.1f} us/launch; "
+                f"bound {timing['bound_ms'] * 1e3:.1f} us by useful bytes ({useful / 1e6:.1f} MB, "
+                f"{100 * timing['bound_ms'] / kernel_ms:.1f}%), "
+                f"{timing['moved32_bound_ms'] * 1e3:.1f} us by moved bytes in 32 B sectors "
+                f"({moved[32] / 1e6:.1f} MB, {100 * timing['moved32_bound_ms'] / kernel_ms:.1f}%), "
+                f"{timing['moved64_bound_ms'] * 1e3:.1f} us in 64 B blocks ({moved[64] / 1e6:.1f} "
+                f"MB, {100 * timing['moved64_bound_ms'] / kernel_ms:.1f}%); "
+                f"{useful / (kernel_ms * 1e-3) / 1e12:.2f} TB/s useful; plain chain "
+                f"{plain_ms * 1e3:.1f} us ({plain_ms / kernel_ms:.1f}x) | {card['smi']}")
+        del feats, views, tau
+        torch.cuda.empty_cache()
+    if kpn_softmax.launches != launched:
+        raise AssertionError(f"kpn_softmax: {kpn_softmax.launches} launches counted, "
+                             f"{launched} made")
+
+    # the heads on the card: one launch a slot, none of the plain chain's kernels
+    heads = {}
+    for name, slots in (("kpn-hq", 8), ("flagship-max", 2)):
+        head = kpn.KernelPredictionHead(5, slots, logit_norm=True).to("cuda")
+        feats = 3 * torch.randn((2, 24, 40, slots * 25), generator=gen, device="cuda")
+        signal = torch.rand((2, 24, 40, 3 * slots), generator=gen, device="cuda")
+        kpn_softmax.reset_launches()
+        with torch.no_grad(), torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            head(feats, signal)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        chain = [n for n in names if "softmax_warp" in n or "reduce_kernel" in n]
+        if kpn_softmax.launches != slots or chain or not any("kpn_softmax_kernel" in n
+                                                               for n in names):
+            raise AssertionError(f"{name} head: {kpn_softmax.launches} kpn_softmax launches "
+                                 f"(want {slots}), plain-chain kernels {chain}")
+        heads[name] = kpn_softmax.launches
+        log(f"[kpn-softmax] {name} head on the card: {kpn_softmax.launches} launches, device "
+            f"kernels {sorted(set(n[:40] for n in names))}")
+    return {**timings["kpn-hq 1080p"], "max_abs_err": worst, "by_path": timings,
+            "launches": launched, "head_launches": heads}
 
 
 # The per-pass fused-ingest kernels: name -> (TPU kernel it replaces, passes
@@ -916,8 +1057,10 @@ def phase_preset(preset: str, weights: str, frame: dict, card: dict,
 
     if cli:  # the user's entry point
         cli_out, cli_launches = _cli_denoise(preset, frame, ["--preset", preset], wpath, "joint")
-        expect_launches(f"{label} cli frame", cli_launches, kpn_apply=kernel_launches_per_frame)
+        expect_launches(f"{label} cli frame", cli_launches, kpn_apply=kernel_launches_per_frame,
+                        kpn_softmax=kernel_launches_per_frame)
         res["cli_launches"] = cli_launches["kpn_apply"]
+        res["cli_softmax_launches"] = cli_launches["kpn_softmax"]
         res["cli_gain_db"] = _gain_db(cli_out, noisy_c, clean_c)
 
     # the same path through the pipeline factory, timed
@@ -933,7 +1076,7 @@ def phase_preset(preset: str, weights: str, frame: dict, card: dict,
     times = time_frames(lambda: denoise(frame_dev), timed_frames)
     launches = read_launches()
     expect_launches(f"{label} over {timed_frames} frames", launches, timed_frames,
-                    kpn_apply=kernel_launches_per_frame)
+                    kpn_apply=kernel_launches_per_frame, kpn_softmax=kernel_launches_per_frame)
     out = denoise(frame_dev)
     check_frame(label, out)
     res.update(
@@ -942,6 +1085,7 @@ def phase_preset(preset: str, weights: str, frame: dict, card: dict,
         ms_median=statistics.median(times), ms_min=min(times), ms_max=max(times),
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         launches_per_frame=launches["kpn_apply"] / timed_frames,
+        softmax_launches_per_frame=launches["kpn_softmax"] / timed_frames,
     )
     if res["gain_db"] <= 0 or res.get("cli_gain_db", 1.0) <= 0:
         raise AssertionError(f"{label}: no PSNR gain ({res['gain_db']}, cli {res.get('cli_gain_db')})")
@@ -1008,7 +1152,7 @@ def phase_flagship_max(frame: dict, card: dict, profile: bool = False,
     from deepdenoiser_tpu_torch.models import kpn
 
     what = "flagship-max"
-    per_frame = dict(kpn_apply=2, group_encode=1)
+    per_frame = dict(kpn_apply=2, kpn_softmax=2, group_encode=1)
     clean_c, noisy_c = _frame_on_card(frame)
     wpath = str(ROOT / "weights" / "kpn_ema_f16.npz")
     preset = config.PRESETS[what]
@@ -1042,7 +1186,7 @@ def phase_flagship_max(frame: dict, card: dict, profile: bool = False,
     reset_launches()
     t_plain = time_frames(lambda: plain(frame_dev), 2 * timed_frames)
     expect_launches(f"{what} over {2 * timed_frames} plain-encode frames", read_launches(),
-                    2 * timed_frames, kpn_apply=2)
+                    2 * timed_frames, kpn_apply=2, kpn_softmax=2)
     t_fused += time_frames(lambda: fused(frame_dev), timed_frames)
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     # the encode alone, both ways (CUDA events; launch cost included)
@@ -1081,9 +1225,9 @@ def phase_flagship_max(frame: dict, card: dict, profile: bool = False,
             reset_launches()
             outs[key] = den(frame_dev)
             torch.cuda.synchronize()
-            expect_launches(f"{what} fp32 {key} encode", read_launches(),
-                            **({k: v for k, v in per_frame.items() if k != "kpn_apply"}
-                               if key == "fused" else {}))
+            # the plain filter apply: no K1, the head's softmax kernel as ever
+            expect_launches(f"{what} fp32 {key} encode", read_launches(), kpn_softmax=2,
+                            **({"group_encode": 1} if key == "fused" else {}))
             del den
             torch.cuda.empty_cache()
     check_frame(f"{what} fp32", outs["plain"])
@@ -1126,7 +1270,7 @@ def phase_aux_subsets(frame: dict, card: dict) -> dict:
     frame_dev = _fp32_frame(frame)
     counts = {}
     for aux in (("normal", "depth"), ("alpha",)):
-        per_frame = dict(kpn_apply=2, group_encode=1)
+        per_frame = dict(kpn_apply=2, kpn_softmax=2, group_encode=1)
         mcfg = factory.ModelConfig(
             in_channels=transforms.group_input_channels(aux), out_channels=6, base_width=16,
             depth=2, act="leaky_relu", kernel_prediction=True, kpn_size=3, kpn_slots=2)
@@ -1143,7 +1287,7 @@ def phase_aux_subsets(frame: dict, card: dict) -> dict:
             torch.cuda.synchronize()
             launches = read_launches()
             expect_launches(f"group frame aux={aux} fused={fused}", launches,
-                            **(per_frame if fused else dict(kpn_apply=2)))
+                            **(per_frame if fused else dict(kpn_apply=2, kpn_softmax=2)))
             if fused:
                 counts["aux " + "+".join(aux)] = launches["group_encode"]
             del den
@@ -1297,8 +1441,9 @@ def phase_tiled_4k(frame: dict, card: dict, profile: bool = False, timed_frames:
     den(frame_dev)
     torch.cuda.synchronize()
     launches = read_launches()
-    expect_launches(f"{what} tiled frame", launches, kpn_apply=per_frame)
+    expect_launches(f"{what} tiled frame", launches, kpn_apply=per_frame, kpn_softmax=per_frame)
     res["launches"] = launches["kpn_apply"]
+    res["softmax_launches"] = launches["kpn_softmax"]
     t_tiled, res["peak_tiled"], out = _timed(den, frame_dev, timed_frames, warmup=0)
     check_frame(f"{what} tiled", out, (UHD_H, UHD_W))
     res["gain_tiled"] = _gain_db(out["combined"], noisy_c, clean_c)
@@ -1311,7 +1456,8 @@ def phase_tiled_4k(frame: dict, card: dict, profile: bool = False, timed_frames:
     res["mpx_whole"] = wgrid.net_h * wgrid.net_w / 1e6
     reset_launches()
     t_whole, res["peak_whole"], out = _timed(den, frame_dev, timed_frames)
-    expect_launches(f"{what} whole frames", read_launches(), timed_frames + 2, kpn_apply=8)
+    expect_launches(f"{what} whole frames", read_launches(), timed_frames + 2, kpn_apply=8,
+                    kpn_softmax=8)
     check_frame(f"{what} whole", out, (UHD_H, UHD_W))
     res["gain_whole"] = _gain_db(out["combined"], noisy_c, clean_c)
     del den, out, frame_dev
@@ -1344,7 +1490,7 @@ def phase_tiled_4k(frame: dict, card: dict, profile: bool = False, timed_frames:
             outs[key] = den(frame_dev)
             torch.cuda.synchronize()
             expect_launches(f"kpn-hq 1080p fp32 {key}", read_launches(),
-                            kpn_apply=8 * -(-g.n_tiles // 4))
+                            kpn_apply=8 * -(-g.n_tiles // 4), kpn_softmax=8 * -(-g.n_tiles // 4))
             del den
             torch.cuda.empty_cache()
     check_frame("kpn-hq 1080p fp32 tiled", outs["tiled"])
@@ -1386,7 +1532,8 @@ def phase_feather(frame: dict, card: dict, timed_frames: int = 3) -> dict:
             outs[key] = den(frame_dev)
             torch.cuda.synchronize()
             launches = read_launches()
-            expect_launches(f"{what} fp32 {key}", launches, group_encode=1, kpn_apply=2 * chunks)
+            expect_launches(f"{what} fp32 {key}", launches, group_encode=1, kpn_apply=2 * chunks,
+                            kpn_softmax=2 * chunks)
             if key == "feather":
                 res["launches"] = launches
             check_frame(f"{what} fp32 {key}", outs[key])
@@ -1867,7 +2014,8 @@ def phase_train_parity(card: dict) -> None:
         reset_launches()
         gpu, gm = step(gpu, {k: v.to("cuda") for k, v in batch.items()})
         torch.cuda.synchronize()
-        expect_launches("train-parity step", read_launches(), kpn_apply=8, kpn_apply_bwd_weights=8)
+        expect_launches("train-parity step", read_launches(), kpn_apply=8, kpn_apply_bwd_weights=8,
+                        kpn_softmax=8)
     cpu = train_lib.create_state(mcfg, tcfg, seed=0, device="cpu")
     cpu, cm = step(cpu, batch)
     rel = {k: abs(float(gm[k]) - float(cm[k])) / abs(float(cm[k])) for k in ("loss", "grad_norm")}
@@ -2102,7 +2250,7 @@ def phase_train(frame: dict, card: dict, profile: bool = False, parent_csrc=None
                              f"{res['k1_eval_launches']} in the eval; want {8 * TRAIN_STEPS}, "
                              f"{per_eval}")
     expect_launches("cli train", res["launches"], kpn_apply=8 * TRAIN_STEPS + per_eval,
-                    kpn_apply_bwd_weights=8 * TRAIN_STEPS)
+                    kpn_apply_bwd_weights=8 * TRAIN_STEPS, kpn_softmax=8 * TRAIN_STEPS + per_eval)
     recs = _metrics(workdir / "metrics_train.jsonl")
     if [r["step"] for r in recs] != list(range(1, TRAIN_STEPS + 1)) or not all(
             math.isfinite(r["loss"]) for r in recs):
@@ -2134,7 +2282,7 @@ def phase_train(frame: dict, card: dict, profile: bool = False, parent_csrc=None
     torch.cuda.synchronize()
     resumed = RESUME_STEPS - TRAIN_STEPS
     expect_launches("cli train resumed", read_launches(), kpn_apply=8 * resumed,
-                    kpn_apply_bwd_weights=8 * resumed)
+                    kpn_apply_bwd_weights=8 * resumed, kpn_softmax=8 * resumed)
     recs = _metrics(workdir / "metrics_train.jsonl")
     ckpts = sorted(int(p.name) for p in (workdir / "checkpoints").iterdir() if p.name.isdigit())
     if [r["step"] for r in recs] != list(range(1, RESUME_STEPS + 1)) or ckpts != [10, 20, 30]:
@@ -2151,7 +2299,7 @@ def phase_train(frame: dict, card: dict, profile: bool = False, parent_csrc=None
                    "--out", str(out_exr)]) != 0:
         raise AssertionError("cli denoise --checkpoint failed")
     torch.cuda.synchronize()
-    expect_launches("cli denoise --checkpoint", read_launches(), kpn_apply=8)
+    expect_launches("cli denoise --checkpoint", read_launches(), kpn_apply=8, kpn_softmax=8)
     out = torch.from_numpy(exr.read_exr(out_exr))
     if tuple(out.shape) != (FRAME_H, FRAME_W, 3) or not torch.isfinite(out).all():
         raise AssertionError(f"cli denoise --checkpoint: output {tuple(out.shape)} not finite")
@@ -2185,7 +2333,7 @@ def phase_train(frame: dict, card: dict, profile: bool = False, parent_csrc=None
         with full_fp32() if dtype == "float32" else contextlib.nullcontext():
             losses, times = _steps_timed(state, step, batch, n)
         expect_launches(f"{label} train steps", read_launches(), n, kpn_apply=k1,
-                        kpn_apply_bwd_weights=k1)
+                        kpn_apply_bwd_weights=k1, kpn_softmax=k1)
         ms = statistics.median(times[TRAIN_WARMUP:])
         res[label] = {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                       "first_loss": losses[0], "last_loss": losses[-1], "steps": n}
@@ -2444,7 +2592,7 @@ def phase_device_batch(card: dict, train_res: dict) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
     launches = read_launches()
     expect_launches("device-batch train steps", launches, DEVICE_BATCH_STEPS, kpn_apply=8,
-                    kpn_apply_bwd_weights=8)
+                    kpn_apply_bwd_weights=8, kpn_softmax=8)
     step_losses, step_times = _steps_timed(state, step, make("mixed-mc"), DEVICE_BATCH_STEPS)
     if not all(math.isfinite(v) for v in losses + step_losses):
         raise AssertionError(f"device-batch train: non-finite loss {losses} {step_losses}")
@@ -2585,7 +2733,8 @@ def phase_multi_device(frame: dict, card: dict) -> dict:
     spatial32 = dataclasses.replace(spatial, compute_dtype="float32")
     whole, wgrid = pipeline.make_joint_frame_denoiser(cfg.model, spatial, FRAME_H, FRAME_W, params)
     ms, lo, hi, peak, launches = _timed_frames(whole, frame_dev, MD_TIMED_FRAMES)
-    expect_launches("kpn-hq whole frame, certified halo", launches, MD_TIMED_FRAMES, kpn_apply=8)
+    expect_launches("kpn-hq whole frame, certified halo", launches, MD_TIMED_FRAMES, kpn_apply=8,
+                    kpn_softmax=8)
     whole_mpx = wgrid.net_h * wgrid.net_w / 1e6
     res["whole"] = {"ms": ms, "peak_gib": peak, "mpx": whole_mpx,
                     "gain_db": _gain_db(whole(frame_dev)["combined"], noisy_c, clean_c)}
@@ -2604,7 +2753,8 @@ def phase_multi_device(frame: dict, card: dict) -> dict:
         den, _ = pipeline.make_joint_frame_denoiser(cfg.model, spatial, FRAME_H, FRAME_W, params,
                                                     mesh=mesh)
         ms, lo, hi, peak, launches = _timed_frames(den, frame_dev, MD_TIMED_FRAMES)
-        expect_launches(f"kpn-hq {n} bands", launches, MD_TIMED_FRAMES, kpn_apply=8 * n)
+        expect_launches(f"kpn-hq {n} bands", launches, MD_TIMED_FRAMES, kpn_apply=8 * n,
+                        kpn_softmax=8 * n)
         out = den(frame_dev)
         check_frame(f"kpn-hq {n} bands", out)
         gain = _gain_db(out["combined"], noisy_c, clean_c)
@@ -2615,7 +2765,8 @@ def phase_multi_device(frame: dict, card: dict) -> dict:
             reset_launches()
             out32 = den32(frame_dev)
             torch.cuda.synchronize()
-            expect_launches(f"kpn-hq {n} bands fp32", read_launches(), kpn_apply=8 * n)
+            expect_launches(f"kpn-hq {n} bands fp32", read_launches(), kpn_apply=8 * n,
+                            kpn_softmax=8 * n)
         err = frames_agree(f"kpn-hq {n} bands fp32 vs the whole frame", out32, ref32, MD_TOL)
         gain32 = _gain_db(out32["combined"], noisy_c, clean_c)
         del den32, out32
@@ -2645,7 +2796,7 @@ def phase_multi_device(frame: dict, card: dict) -> dict:
                                                  mesh=_md_mesh(n, "spatial"))
     ms, lo, hi, peak, launches = _timed_frames(gden, frame_dev, MD_TIMED_FRAMES)
     expect_launches(f"flagship-max {n} bands", launches, MD_TIMED_FRAMES, kpn_apply=2 * n,
-                    group_encode=1)
+                    kpn_softmax=2 * n, group_encode=1)
     gain = _gain_db(gden(frame_dev)["combined"], noisy_c, clean_c)
     del gden
     with full_fp32():
@@ -2689,7 +2840,7 @@ def phase_multi_device(frame: dict, card: dict) -> dict:
     torch.cuda.synchronize()
     batch_ms = (time.perf_counter() - t0) * 1e3
     launches = read_launches()
-    expect_launches("kpn-hq frame batch", launches, MD_BATCH_FRAMES, kpn_apply=8)
+    expect_launches("kpn-hq frame batch", launches, MD_BATCH_FRAMES, kpn_apply=8, kpn_softmax=8)
     batch_peak = torch.cuda.max_memory_allocated() / 2**30
     if tuple(got.shape) != (MD_BATCH_FRAMES, FRAME_H, FRAME_W, 3) or not torch.isfinite(got).all():
         raise AssertionError(f"frame batch: {tuple(got.shape)}")
@@ -2737,7 +2888,8 @@ def phase_multi_device(frame: dict, card: dict) -> dict:
     ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
     for r in ranks:
         for lc in r["launches"]:
-            expect_launches("DP rank train step", lc, kpn_apply=8, kpn_apply_bwd_weights=8)
+            expect_launches("DP rank train step", lc, kpn_apply=8, kpn_apply_bwd_weights=8,
+                            kpn_softmax=8)
     if not torch.equal(ranks[0]["params"], ranks[1]["params"]) or ranks[0]["mets"] != ranks[1]["mets"]:
         raise AssertionError("DP ranks hold different parameters or metrics")
     step = train_lib.make_train_step(mcfg, tcfg.train)
@@ -2842,7 +2994,8 @@ def phase_multi_device(frame: dict, card: dict) -> dict:
                    "--out", str(out_exr)]) != 0:
         raise AssertionError("cli denoise --checkpoint of the 2-rank run failed")
     torch.cuda.synchronize()
-    expect_launches("denoise --checkpoint of the 2-rank run", read_launches(), kpn_apply=8)
+    expect_launches("denoise --checkpoint of the 2-rank run", read_launches(), kpn_apply=8,
+                    kpn_softmax=8)
     out = torch.from_numpy(exr.read_exr(out_exr))
     if tuple(out.shape) != (FRAME_H, FRAME_W, 3) or not torch.isfinite(out).all():
         raise AssertionError(f"denoise of the 2-rank checkpoint: {tuple(out.shape)}")
@@ -2918,9 +3071,11 @@ def _recipe_run(out: Path, teacher: bool) -> dict:
     if in_val != [8] * n_val or n_val != 2 * pretrain_flagship.VAL_BATCHES:
         raise AssertionError(f"recipe: K1 launches in validation {in_val}, want 8 in each of "
                              f"{2 * pretrain_flagship.VAL_BATCHES} batches")
-    steps = {**launches, "kpn_apply": launches["kpn_apply"] - sum(in_val)}
+    # validation's launches taken out: K1's as counted, the softmax's one a slot (8 a batch)
+    steps = {**launches, "kpn_apply": launches["kpn_apply"] - sum(in_val),
+             "kpn_softmax": launches["kpn_softmax"] - 8 * n_val}
     expect_launches(f"recipe steps (teacher {teacher})", steps, RELEASE_STEPS, kpn_apply=8,
-                    kpn_apply_bwd_weights=8)
+                    kpn_apply_bwd_weights=8, kpn_softmax=8)
     losses = [r["loss"] for r in summary["log"]]
     if [r["step"] for r in summary["log"]] != list(range(RELEASE_LOG_EVERY, RELEASE_STEPS + 1,
                                                           RELEASE_LOG_EVERY)) \
@@ -2968,8 +3123,10 @@ def phase_release(frame: dict, card: dict) -> dict:
         dev = goldens.check(fam, device="cuda")
         torch.cuda.synchronize()
         launches = read_launches()
-        expect_launches(f"golden {fam}", launches, kpn_apply=2 if fam == "kpn" else 0)
-        res["goldens"][fam] = {"max_abs_dev": dev, "kpn_apply": launches["kpn_apply"]}
+        expect_launches(f"golden {fam}", launches, kpn_apply=2 if fam == "kpn" else 0,
+                        kpn_softmax=2 if fam == "kpn" else 0)
+        res["goldens"][fam] = {"max_abs_dev": dev, "kpn_apply": launches["kpn_apply"],
+                               "kpn_softmax": launches["kpn_softmax"]}
     log("[release] TF goldens on the card (fp32, TF32 off), max|d| against io.npz y, limit "
         f"{goldens.ATOL:g}: " + ", ".join(f"{f} {r['max_abs_dev']:.3e} ({r['kpn_apply']} K1)"
                                           for f, r in res["goldens"].items()))
@@ -2993,7 +3150,8 @@ def phase_release(frame: dict, card: dict) -> dict:
         check_launches = read_launches()
         for what, launches in (("make", make_launches), ("check", check_launches)):
             expect_launches(f"made golden {fam}, {what}", launches,
-                            kpn_apply=2 if fam == "kpn" else 0)
+                            kpn_apply=2 if fam == "kpn" else 0,
+                            kpn_softmax=2 if fam == "kpn" else 0)
         # held independently of the card: the card-made y against the CPU's
         # forward of the same checkpoint (the plain filter apply, no cuDNN),
         # and the checkpoint's bytes against a CPU make's
@@ -3042,7 +3200,7 @@ def phase_release(frame: dict, card: dict) -> dict:
             torch.cuda.synchronize()
             launches = read_launches()
             expect_launches("kpn-hq frame, release / round-tripped weights", launches,
-                            kpn_apply=8)
+                            kpn_apply=8, kpn_softmax=8)
             del den
     check_frame("kpn-hq with round-tripped weights", outs[1])
     if set(outs[0]) != set(outs[1]) or not all(torch.equal(outs[0][k], outs[1][k])
@@ -3097,7 +3255,8 @@ def phase_release(frame: dict, card: dict) -> dict:
             raise AssertionError("exported npz: keys/shapes/dtypes differ from the release file's")
     cli_out, cli_launches = _cli_denoise("kpn-hq-export", frame, ["--preset", "kpn-hq"], str(npz),
                                          "joint")
-    expect_launches("kpn-hq cli frame with the exported npz", cli_launches, kpn_apply=8)
+    expect_launches("kpn-hq cli frame with the exported npz", cli_launches, kpn_apply=8,
+                    kpn_softmax=8)
     res["export"] = {"bytes": npz.stat().st_size, "shipped_bytes": shipped.stat().st_size,
                      "arrays": len(layout), "kpn_apply": cli_launches["kpn_apply"],
                      "gain_db": _gain_db(cli_out, noisy_c, clean_c),
@@ -3220,7 +3379,8 @@ def _per_frame(what: str, run: dict, k1_per_frame: list, **other_per_frame) -> i
                              f"{k1_per_frame} K1 a frame")
     frames = sum(n for n, _ in got)
     want = {name: 0 for name in run["launches"]}
-    want["kpn_apply"] = sum(k for _, k in got)
+    # the tools run the head as it is: its softmax launches once before each K1 launch
+    want["kpn_apply"] = want["kpn_softmax"] = sum(k for _, k in got)
     for name, per in other_per_frame.items():
         want[name] = per * frames
     if run["launches"] != want:
@@ -3317,7 +3477,7 @@ def phase_tools(frame: dict, card: dict, kpn_res: dict, multilayer, corpus) -> d
                 "--steps", str(TOOLS_PIPE_STEPS), "--shards", str(shards)])
     steps = 2 * (TOOLS_PIPE_STEPS + 1)  # two timed paths, each after a warm-up step
     expect_launches("bench_input_pipeline", run["launches"], steps, kpn_apply=8,
-                    kpn_apply_bwd_weights=8)
+                    kpn_apply_bwd_weights=8, kpn_softmax=8)
     pipe = res["bench_input_pipeline"] = dict(
         run["json"], steps=steps, launches_per_step={k: v / steps for k, v in run["launches"].items()})
     rates = ("host_iter_batches_per_s", "grain_2dispatch_steps_per_s", "synth_fused_steps_per_s",
@@ -3618,6 +3778,7 @@ def _run_phases(phase, card: dict, holdouts, multilayer, corpus, exr_turns,
                 profile: bool, parent_csrc) -> tuple:
     phase("build", phase_build)
     kern = phase("kernels", phase_kernels, card)
+    soft = phase("kpn-softmax", phase_kpn_softmax, card)
     ingest = phase("ingest-kernels", phase_ingest_kernels, card)
 
     from deepdenoiser_tpu_torch.data import exr
@@ -3660,9 +3821,9 @@ def _run_phases(phase, card: dict, holdouts, multilayer, corpus, exr_turns,
     bench_res = phase("bench", phase_bench, frame, card, kpn_res, hq_res, holdouts, mc_res)
     roof_res = phase("roofline", phase_roofline, card)
     exr_res = phase("exr", phase_exr, card, exr_turns)
-    return (kern, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res, feather_res,
-            train_kern, train_res, mc_res, batch_res, md_res, rel_res, tools_res, bench_res,
-            roof_res, exr_res)
+    return (kern, soft, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res,
+            feather_res, train_kern, train_res, mc_res, batch_res, md_res, rel_res, tools_res,
+            bench_res, roof_res, exr_res)
 
 
 def main(argv=None) -> int:
@@ -3698,7 +3859,7 @@ def main(argv=None) -> int:
         exr_turns = pool.submit(_exr_turns, MULTILAYER_EXR)
         res = _run_phases(phase, card, holdouts, multilayer, corpus, exr_turns, args.profile,
                           args.parent_csrc)
-    kern, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res, feather_res, \
+    kern, soft, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res, feather_res, \
         train_kern, train_res, mc_res, batch_res, md_res, rel_res, tools_res, bench_res, \
         roof_res, exr_res = res
     log("[time] " + ", ".join(f"{k} {v:.0f}" for k, v in seconds.items()) + " s")
@@ -3787,6 +3948,25 @@ def main(argv=None) -> int:
                                                   "moved64_bound_ms")}
                    for name, c in t["cases"].items()},
         ))
+    # launches: of the kpn-hq cli frame, as K1's row; those of the phase's
+    # own checks and timings, and of its toy heads, apart
+    kernels.append(_kernel_row(
+        "kpn_softmax", "deepdenoiser_tpu_torch/csrc/kpn_softmax.cu",
+        "none: XLA fuses the JAX head's RMS norm and softmax", kpn_res["cli_softmax_launches"],
+        soft, launches_per_frame=kpn_res["softmax_launches_per_frame"],
+        launches_by_path={
+            "kpn-hq cli frame": kpn_res["cli_softmax_launches"],
+            "flagship-max cli frame": max_res["cli_launches"]["kpn_softmax"],
+            "kpn-hq tiled 4K frame": uhd_res["softmax_launches"],
+            "flagship-max feathered frame": feather_res["launches"]["kpn_softmax"],
+            "kpn-hq train step on device batches": batch_res["launches"]["kpn_softmax"],
+            "kpn TF golden (k=3, 2 slots)": rel_res["goldens"]["kpn"]["kpn_softmax"],
+        },
+        phase_launches=soft["launches"], launches_by_head=soft["head_launches"],
+        by_shape={path: {key: t[key] for key in (
+            "shape", "slots", "ms", "plain_ms", "bound_ms", "moved32_bound_ms", "moved64_bound_ms")}
+            for path, t in soft["by_path"].items()},
+    ))
     group_t = ingest.pop("group_encode")
     for name, t in ingest.items():
         # launches: of the per-pass encode of the frame's passes (the group

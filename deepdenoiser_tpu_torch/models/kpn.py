@@ -10,7 +10,9 @@ noisy neighbours, and the filter is applied to the noisy signal, one
 apply and `apply_per_pixel_kernels_bwd` that of its backward. The head
 calls ops/kpn_apply.py's autograd function, which launches the CUDA
 kernels for tensors on the card and runs these plain versions for tensors
-on the CPU.
+on the CPU. Each slot's RMS norm, temperature and softmax go through
+ops/kpn_softmax.py's autograd function in the same way: one CUDA launch a
+slot on the card, its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepdenoiser_tpu_torch import tracing
-from deepdenoiser_tpu_torch.ops import kpn_apply
+from deepdenoiser_tpu_torch.ops import kpn_apply, kpn_softmax
 
 Tensor = torch.Tensor
 
@@ -105,22 +107,18 @@ class KernelPredictionHead(nn.Module):
             raise ValueError(f"backbone must emit {self.n_slots * k2} channels, got {feats.shape[-1]}")
         if signal.shape[-1] != 3 * self.n_slots:
             raise ValueError(f"signal must have {3 * self.n_slots} channels, got {signal.shape[-1]}")
-        if self.logit_norm:
-            taus = self.TEMP_MAX * torch.sigmoid(self.kernel_temp.float())
+        taus = self.TEMP_MAX * torch.sigmoid(self.kernel_temp.float()) if self.logit_norm else None
         outs = []
         for s in range(self.n_slots):
             # the slot's logits as the JAX head takes them, (N,H,W,k²) fp32
-            # with the taps last: a strided slice of feats, which the RMS
-            # norm's elementwise ops read in place. The softmax's output is
-            # contiguous (N,H,W,k²), the layout the filter-apply kernel
+            # with the taps last: a strided slice of feats, which the norm
+            # and softmax read in place (τ stays on the device). The weights
+            # are contiguous (N,H,W,k²), the layout the filter-apply kernel
             # stages in 16-byte copies and the backward kernel writes the
-            # weight gradient in, which the softmax's backward takes as it
-            # is; nothing is transposed or gathered either way.
+            # weight gradient in; nothing is transposed or gathered either
+            # way.
             logits = feats[..., s * k2 : (s + 1) * k2].float()
-            if self.logit_norm:
-                rms = torch.sqrt(torch.mean(logits * logits, dim=-1, keepdim=True) + 1e-8)
-                logits = logits / rms * taus[s]
-            weights = torch.softmax(logits, dim=-1)
+            weights = kpn_softmax.KpnSoftmax.apply(logits, None if taus is None else taus[s])
             slot = signal[..., 3 * s : 3 * (s + 1)].float()
             with tracing.span("k1"):
                 outs.append(self.filter_apply(slot, weights, self.kernel_size))

@@ -21,7 +21,7 @@ from deepdenoiser_tpu_torch.data import mc_tracer, synthetic, synthetic_device
 from deepdenoiser_tpu_torch.data.draws import seeded
 from deepdenoiser_tpu_torch.inference import pipeline
 from deepdenoiser_tpu_torch.models import kpn
-from deepdenoiser_tpu_torch.ops import fused_ingest, kpn_apply
+from deepdenoiser_tpu_torch.ops import fused_ingest, kpn_apply, kpn_softmax
 
 import torch_flips  # noqa: E402  (tests/, on the path of every test module)
 
@@ -494,6 +494,57 @@ def test_kpn_autograd_on_the_card_launches_only_the_gradients_asked_for(cuda):
         kpn_apply.reset_launches()
         kpn_apply.apply_per_pixel_kernels(stack[..., 3:6], torch.softmax(logits, -1), k)
         assert (kpn_apply.launches, kpn_apply.bwd_weights_launches) == (1, 0)
+
+
+@pytest.mark.parametrize("lead,k,slots,norm,crop", [
+    ((1, 37, 53), 5, 8, True, False), ((4, 20, 36), 5, 2, True, False),
+    ((2, 19, 21), 3, 2, True, False), ((3, 9, 7), 3, 1, False, False),
+    ((2, 30, 41), 5, 8, False, True), ((1, 1, 3), 5, 8, True, False)])
+def test_kpn_softmax_kernel_matches_plain_version(cuda, lead, k, slots, norm, crop):
+    """Every slot view of an (N,H,W,slots·k²) output, ragged pixel counts,
+    and a cropped view whose N, H and W strides do not merge."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    k2 = k * k
+    feats = 3 * torch.randn((*lead, slots * k2), generator=gen, device=cuda)
+    if crop:
+        feats = feats[:, 2:-1, 1:-3, :]
+    taus = 16 * torch.sigmoid(2 * torch.randn((slots,), generator=gen, device=cuda)) if norm else None
+    kpn_softmax.reset_launches()
+    for s in range(slots):
+        logits = feats[..., s * k2 : (s + 1) * k2]
+        tau = taus[s] if norm else None
+        got = kpn_softmax.KpnSoftmax.apply(logits, tau)
+        want = kpn_softmax.softmax_plain(logits, tau)
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and got.shape == want.shape
+        # the same fp32 operations, sums in another order; exp carries z's rounding
+        assert bool(torch.all((got - want).abs() <= 1e-6 + 1e-4 * want.abs()))
+        assert torch.equal(got, kpn_softmax.softmax_cuda(logits, tau))
+    assert kpn_softmax.launches == 2 * slots
+
+
+def test_kpn_head_on_the_card_launches_one_softmax_a_slot_and_the_plain_gradients(cuda):
+    """kpn-hq's head (8 slots of 5x5, RMS-normed logits): 8 launches a
+    forward, and the gradients of the logits and the temperatures those of
+    the same head on the CPU."""
+    k, slots = 5, 8
+    gen = torch.Generator().manual_seed(8)
+    feats = 3 * torch.randn((2, 16, 24, slots * k * k), generator=gen)
+    signal = torch.rand((2, 16, 24, 3 * slots), generator=gen)
+    cot = torch.randn((2, 16, 24, 3 * slots), generator=gen)
+    grads = {}
+    for dev in ("cpu", cuda):
+        head = kpn.KernelPredictionHead(k, slots, logit_norm=True).to(dev)
+        with torch.no_grad():
+            head.kernel_temp.copy_(torch.linspace(-2.0, 2.0, slots))
+        f = feats.to(dev, copy=True).requires_grad_()
+        kpn_softmax.reset_launches()
+        out = head(f, signal.to(dev))
+        assert kpn_softmax.launches == (slots if dev == cuda else 0)
+        (out * cot.to(dev)).sum().backward()
+        grads[str(dev)] = (f.grad.cpu(), head.kernel_temp.grad.cpu())
+    for got, want in zip(grads[str(cuda)], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
 
 
 def _slot_inputs(shape, k, dev, stack, slot, seed=0):
