@@ -20,21 +20,53 @@ where the joined width exceeds `up_compress`), DenseBlock_0 the entry
 block, DenseBlock_1..depth the down path, the rest the up path,
 UpSample_0..depth-1, and Conv_0 the head. A release file therefore maps
 onto the state_dict by path (weights_io.py).
+
+Spans (tracing.py), inside the model's `backbone` span: `dense` around
+each dense block and its join [x, block(x)], `transition` around each
+transition down (1x1 conv and average pool) and each transition up (the
+resize-conv and the [up, skip] join, or its 1x1 compression). The
+module-level counts `concats` and `concat_bytes` take every multi-input
+channel concatenation the backbone launches (a dense layer's [x, f1..],
+a block's [f1..fn], the joins [x, block] and [up, skip]) and the bytes it
+writes, from the shapes on the host; a dense block's first layer reads x
+alone and is not counted. `reset_concats()` zeroes them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deepdenoiser_tpu_torch import tracing
 from deepdenoiser_tpu_torch.models import layers
 from deepdenoiser_tpu_torch.models.layers import RFState
 
 Tensor = torch.Tensor
+
+# multi-input concatenations launched since the last reset, and the bytes
+# they wrote (plain counts; added where each tuple is built)
+concats = 0
+concat_bytes = 0
+
+
+def reset_concats() -> None:
+    global concats, concat_bytes
+    concats = concat_bytes = 0
+
+
+def _counted(parts: Sequence[Tensor]) -> Sequence[Tensor]:
+    """`parts`, after counting their channel concatenation (more than one
+    part) by the shapes alone: no device work."""
+    global concats, concat_bytes
+    if len(parts) > 1:
+        n, _, h, w = parts[0].shape
+        concats += 1
+        concat_bytes += n * h * w * sum(p.shape[1] for p in parts) * parts[0].element_size()
+    return parts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,8 +140,8 @@ class DenseBlock(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         feats: List[Tensor] = []
         for i in range(self.n_layers):
-            feats.append(getattr(self, f"ConvBlock_{i}")((x, *feats)))
-        return feats[0] if len(feats) == 1 else torch.cat(feats, dim=1)
+            feats.append(getattr(self, f"ConvBlock_{i}")(_counted((x, *feats))))
+        return feats[0] if len(feats) == 1 else torch.cat(_counted(feats), dim=1)
 
 
 class Tiramisu(nn.Module):
@@ -168,20 +200,26 @@ class Tiramisu(nn.Module):
             x = layers.space_to_depth(x, 2)
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         stem = self.ConvBlock_0(x)
-        x = torch.cat((stem, self.DenseBlock_0(stem)), dim=1)
+        with tracing.span("dense"):
+            x = torch.cat(_counted((stem, self.DenseBlock_0(stem))), dim=1)
         skips = []
         for level in range(1, spec.depth + 1):
             skips.append(x)
-            x = F.avg_pool2d(getattr(self, f"ConvBlock_{level}")(x), 2)
-            x = torch.cat((x, getattr(self, f"DenseBlock_{level}")(x)), dim=1)
+            with tracing.span("transition"):
+                x = F.avg_pool2d(getattr(self, f"ConvBlock_{level}")(x), 2)
+            with tracing.span("dense"):
+                x = torch.cat(_counted((x, getattr(self, f"DenseBlock_{level}")(x))), dim=1)
         for level, skip in enumerate(reversed(skips)):
-            x = (getattr(self, f"UpSample_{level}")(x), skip)  # join order [up, skip]
-            if self.compress[level] >= 0:
-                x = getattr(self, f"ConvBlock_{self.compress[level]}")(x)
-            else:
-                x = torch.cat(x, dim=1)
-            block = getattr(self, f"DenseBlock_{spec.depth + 1 + level}")
-            x = torch.cat((x, block(x)), dim=1)
+            with tracing.span("transition"):
+                # join order [up, skip]
+                x = _counted((getattr(self, f"UpSample_{level}")(x), skip))
+                if self.compress[level] >= 0:
+                    x = getattr(self, f"ConvBlock_{self.compress[level]}")(x)
+                else:
+                    x = torch.cat(x, dim=1)
+            with tracing.span("dense"):
+                block = getattr(self, f"DenseBlock_{spec.depth + 1 + level}")
+                x = torch.cat(_counted((x, block(x))), dim=1)
         out = F.conv2d(x, self.Conv_0.weight.to(self.dtype), self.Conv_0.bias.to(self.dtype))
         out = out.permute(0, 2, 3, 1)
         if spec.stem_stride == 2:

@@ -26,18 +26,23 @@ The spans, by where they are opened:
             of tiles
   backbone  models/factory.DenoiserModel.forward: the network under the
             head (the UNet, the tiramisu or the multi-scale wrapper)
+  dense     models/tiramisu.Tiramisu.forward, inside `backbone`: each
+            dense block with its join [x, block(x)]
+  transition  models/tiramisu.Tiramisu.forward, inside `backbone`: each
+            transition down (1x1 conv, average pool) and each transition
+            up (resize-conv, the [up, skip] join or its 1x1 compression)
   head      models/factory.DenoiserModel.forward: the rest of the model,
             the KPN head with its signal gather (or the residual add)
   k1        models/kpn.KernelPredictionHead.forward: each filter apply
   decode    inference/pipeline: decode, the passes carried through and
             the recompose
 
-The benchmark's `h100_bench/spans.py` reads all eight: it attributes
+The benchmark's `h100_bench/spans.py` reads them all: it attributes
 each device operation to the innermost span whose host interval holds
 its launch event, and reads a layer's device time as the time of the
 operations whose innermost span it is (`encode_ms`, `plane_ms` from
-`net`, `backbone_ms`, `head_ms`, `decode_ms`, K1's from `k1`), and the
-host's dispatch time of a frame from `frame`.
+`net`, `backbone_ms`, `dense_ms`, `head_ms`, `decode_ms`, K1's from
+`k1`), and the host's dispatch time of a frame from `frame`.
 """
 
 from __future__ import annotations
