@@ -33,6 +33,13 @@ non-zero:
                  shapes, k=3, the norm off, ragged and cropped views, its
                  time beside useful and moved bytes and the plain chain's,
                  one launch a slot of a head and none of the chain's kernels;
+                 the conv epilogue kernel (bias and activation) vs its
+                 plain version, bit for bit, at every conv output of the
+                 kpn-hq, flagship-max, tiled 4K and tiramisu-lt1 network
+                 calls, its device ms a frame beside the bytes floor, the
+                 plain version's and PyTorch's add_ + activation, one launch
+                 a conv of a kpn-hq and a tiramisu-lt1 frame (each phase
+                 holds its path's count, from EPILOGUES);
                  the five per-pass
                  fused-ingest kernels and the whole-pixel group encode vs
                  theirs at 1080p, batched and ragged shapes, for every aux
@@ -211,12 +218,14 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import io
 import itertools
 import json
 import math
 import multiprocessing
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -252,6 +261,14 @@ AUX_CHANNELS = {"normal": 3, "depth": 1, "alpha": 1}
 RGB_SMALL = dict(backbone="unet", in_channels=10, out_channels=3, base_width=32, depth=2,
                  convs_per_level=1, act="leaky_relu", compute_dtype="bfloat16",
                  predict_residual=True)
+# conv epilogue (ops/bias_act) launches a network call: one a ConvBlock and
+# one for the 1x1 head; unet-multiscale runs its base UNet at 3 scales
+EPILOGUES = {"kpn-hq": 21, "flagship-hq": 21, "flagship": 21, "flagship-mc": 21,
+             "flagship-max": 21, "kpn": 21,
+             "tiramisu-lt1": 33, "tiramisu-fast": 39, "tiramisu": 36, "unet-multiscale": 63,
+             "rgb-small": 10, "base-16 depth-2": 15, "sweep s2d depth-3": 14,
+             # compat/goldens.GOLDEN_CFGS, one forward a make or a check
+             "golden unet": 15, "golden tiramisu": 16, "golden multiscale": 20, "golden kpn": 10}
 
 
 def log(msg: str) -> None:
@@ -335,19 +352,21 @@ def deterministic_convs():
 
 
 def reset_launches() -> None:
-    from deepdenoiser_tpu_torch.ops import fused_ingest, kpn_apply, kpn_softmax
+    from deepdenoiser_tpu_torch.ops import bias_act, fused_ingest, kpn_apply, kpn_softmax
 
     kpn_apply.reset_launches()
     kpn_softmax.reset_launches()
+    bias_act.reset_launches()
     fused_ingest.reset_launches()
 
 
 def read_launches() -> dict:
-    from deepdenoiser_tpu_torch.ops import fused_ingest, kpn_apply, kpn_softmax
+    from deepdenoiser_tpu_torch.ops import bias_act, fused_ingest, kpn_apply, kpn_softmax
 
     return {"kpn_apply": kpn_apply.launches, "kpn_apply_bwd_weights": kpn_apply.bwd_weights_launches,
             "kpn_apply_bwd_noisy": kpn_apply.bwd_noisy_launches,
-            "kpn_softmax": kpn_softmax.launches, **fused_ingest.launches}
+            "kpn_softmax": kpn_softmax.launches, "bias_act": bias_act.launches,
+            **fused_ingest.launches}
 
 
 def expect_launches(what: str, got: dict, frames: int = 1, **per_frame: int) -> None:
@@ -694,6 +713,135 @@ def phase_kpn_softmax(card: dict) -> dict:
             f"kernels {sorted(set(n[:40] for n in names))}")
     return {**timings["kpn-hq 1080p"], "max_abs_err": worst, "by_path": timings,
             "launches": launched, "head_launches": heads}
+
+
+# the conv epilogue's paths, the frame cells': (name, preset, network batch
+# (N, H, W), network calls a frame)
+BIAS_ACT_PATHS = [("kpn-hq 1080p", "kpn-hq", (1, PLANE_H, PLANE_W), 1),
+                  ("flagship-max 1080p", "flagship-max", (4, PLANE_H, PLANE_W), 1),
+                  ("kpn-hq tiled 4K", "kpn-hq", (TILE_BATCH, NET_TILE, NET_TILE),
+                   -(-(-(-UHD_H // TILE) * -(-UHD_W // TILE)) // TILE_BATCH)),
+                  ("tiramisu-lt1 1080p", "tiramisu-lt1", (1, PLANE_H, PLANE_W), 1)]
+# frames whose launches are held against the profiler's trace: preset -> weights
+BIAS_ACT_FRAMES = {"kpn-hq": "kpn_hq_ema_f16.npz", "tiramisu-lt1": "tiramisu_lt1_ema_f16.npz"}
+
+
+def _epilogue_calls(preset: str, lead) -> list:
+    """(shape, act) of every conv output of the preset's network over an
+    (N, H, W) batch, in order: one forward on the card at random weights,
+    the op wrapped."""
+    from deepdenoiser_tpu_torch import config
+    from deepdenoiser_tpu_torch.models import factory
+    from deepdenoiser_tpu_torch.ops import bias_act
+
+    mcfg = config.validate_channels(config.PRESETS[preset]).model
+    model = factory.init_model(mcfg, torch.Generator().manual_seed(0)).to("cuda")
+    calls, op = [], bias_act.bias_act
+
+    def seen(z, b, act):
+        calls.append((tuple(z.shape), act))
+        return op(z, b, act)
+
+    bias_act.bias_act = seen
+    try:
+        with torch.inference_mode():
+            model(torch.rand((*lead, mcfg.in_channels), device="cuda"))
+        torch.cuda.synchronize()
+    finally:
+        bias_act.bias_act = op
+    del model
+    torch.cuda.empty_cache()
+    return calls
+
+
+def phase_bias_act(card: dict) -> dict:
+    """The conv epilogue kernel (ops/bias_act.py) at the four frame cells'
+    paths: each conv output of a network call, bf16 channels-last, against
+    the plain version (equal bit for bit; every activation and layout is
+    held in tests/test_torch_gpu.py); device ms of a network call's launches
+    by CUDA-graph replay, times the calls a frame, beside the bytes floor
+    (each output read with its bias and written once), the plain version's,
+    and PyTorch's chain that ran before the kernel, `add_` of the cast bias
+    and the activation (timed here, never called by the port); the launches
+    of a small kpn-hq and tiramisu-lt1 frame against the kernels in the
+    profiler's trace (the frame phases hold each path's count)."""
+    from deepdenoiser_tpu_torch import config, weights_io
+    from deepdenoiser_tpu_torch.data import synthetic
+    from deepdenoiser_tpu_torch.inference import pipeline
+    from deepdenoiser_tpu_torch.ops import bias_act
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    timings = {}
+    for path, preset, lead, calls_per_frame in BIAS_ACT_PATHS:
+        calls = _epilogue_calls(preset, lead)
+        zs, bs = [], []
+        for shape, act in calls:
+            z = (3 * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+            zs.append(z.contiguous(memory_format=torch.channels_last))
+            bs.append(torch.randn((shape[1],), generator=gen, device="cuda"))
+        for z, b, (shape, act) in zip(zs, bs, calls):
+            got = bias_act.bias_act_cuda(z.clone(), b, act, z.clone())
+            ref = bias_act.bias_act_plain(z, b, act)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"bias_act {shape} {act}: not the plain chain's bits")
+            del got, ref
+        acts = [act for _, act in calls]
+        kernel = [lambda z=z, b=b, a=a: bias_act.bias_act_cuda(z, b, a, z)
+                  for z, b, a in zip(zs, bs, acts)]
+        plain = [lambda z=z, b=b, a=a: bias_act.bias_act_plain(z, b, a)
+                 for z, b, a in zip(zs, bs, acts)]
+        library = [lambda z=z, b=b, a=a: bias_act.ACTIVATIONS[a](
+            z.add_(b.to(z.dtype).view(1, -1, 1, 1))) for z, b, a in zip(zs, bs, acts)]
+        per_call = {name: graph_ms(fns, replays=5) * len(fns)
+                    for name, fns in (("kernel", kernel), ("plain", plain), ("library", library))}
+        nbytes = sum(z.numel() * 2 * z.element_size() + b.numel() * 4 for z, b in zip(zs, bs))
+        big = max(range(len(zs)), key=lambda i: zs[i].numel())
+        big_ms = graph_ms([kernel[big]], replays=5)
+        big_bytes = 2 * zs[big].numel() * zs[big].element_size()
+        t = timings[path] = {
+            "shape": list(zs[big].shape), "launches_per_call": len(calls),
+            "calls_per_frame": calls_per_frame,
+            "ms": per_call["kernel"] * calls_per_frame,
+            "plain_ms": per_call["plain"] * calls_per_frame,
+            "library_ms": per_call["library"] * calls_per_frame, "bytes": nbytes * calls_per_frame,
+            "flops": 0, "bound_by": "bytes",
+            "bound_ms": nbytes * calls_per_frame / H100_BYTES_PER_S * 1e3, "max_abs_err": 0.0,
+            "largest_ms": big_ms, "largest_bound_ms": big_bytes / H100_BYTES_PER_S * 1e3,
+        }
+        log(f"[bias-act] {path}: {len(calls)} launches a network call x {calls_per_frame}: "
+            f"{t['ms']:.3f} ms a frame, bound {t['bound_ms']:.3f} ms by {t['bytes'] / 1e9:.3f} GB "
+            f"({100 * t['bound_ms'] / t['ms']:.1f}%, {t['bytes'] / t['ms'] / 1e9:.2f} TB/s); "
+            f"plain version {t['plain_ms']:.3f} ms; PyTorch add_ + activation {t['library_ms']:.3f} "
+            f"ms ({t['library_ms'] / t['ms']:.2f}x); largest {tuple(zs[big].shape)} "
+            f"{big_ms * 1e3:.1f} us ({100 * t['largest_bound_ms'] / big_ms:.1f}% of its bound) "
+            f"| {card['smi']}")
+        del zs, bs, kernel, plain, library
+        torch.cuda.empty_cache()
+
+    h, w = 64, 96
+    noisy = synthetic.add_mc_noise(synthetic.generate_clean_passes(h, w, seed=5), spp=4, seed=6)
+    frame = {k: torch.from_numpy(v) for k, v in noisy.items()}
+    for preset, weights in BIAS_ACT_FRAMES.items():
+        want = EPILOGUES[preset]
+        cfg = config.validate_channels(config.PRESETS[preset])
+        params = weights_io.load_release_params(ROOT / "weights" / weights)
+        den, _ = pipeline.make_joint_frame_denoiser(cfg.model, cfg.infer, h, w, params)
+        den(frame)
+        bias_act.reset_launches()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            den(frame)
+            torch.cuda.synchronize()
+        n_kernels = sum(e.count for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and "bias_act_kernel" in e.key)
+        if bias_act.launches != want or n_kernels != want:
+            raise AssertionError(f"{preset} frame: {bias_act.launches} bias_act launches counted, "
+                                 f"{n_kernels} bias_act_kernel in the trace, want {want}")
+        log(f"[bias-act] {preset} frame on the card: {bias_act.launches} launches, "
+            f"{n_kernels} bias_act_kernel in the trace")
+    return {**timings["kpn-hq 1080p"], "by_path": timings}
 
 
 # The per-pass fused-ingest kernels: name -> (TPU kernel it replaces, passes
@@ -1058,9 +1206,10 @@ def phase_preset(preset: str, weights: str, frame: dict, card: dict,
     if cli:  # the user's entry point
         cli_out, cli_launches = _cli_denoise(preset, frame, ["--preset", preset], wpath, "joint")
         expect_launches(f"{label} cli frame", cli_launches, kpn_apply=kernel_launches_per_frame,
-                        kpn_softmax=kernel_launches_per_frame)
+                        kpn_softmax=kernel_launches_per_frame, bias_act=EPILOGUES[preset])
         res["cli_launches"] = cli_launches["kpn_apply"]
         res["cli_softmax_launches"] = cli_launches["kpn_softmax"]
+        res["cli_bias_act_launches"] = cli_launches["bias_act"]
         res["cli_gain_db"] = _gain_db(cli_out, noisy_c, clean_c)
 
     # the same path through the pipeline factory, timed
@@ -1076,7 +1225,8 @@ def phase_preset(preset: str, weights: str, frame: dict, card: dict,
     times = time_frames(lambda: denoise(frame_dev), timed_frames)
     launches = read_launches()
     expect_launches(f"{label} over {timed_frames} frames", launches, timed_frames,
-                    kpn_apply=kernel_launches_per_frame, kpn_softmax=kernel_launches_per_frame)
+                    kpn_apply=kernel_launches_per_frame, kpn_softmax=kernel_launches_per_frame,
+                    bias_act=EPILOGUES[preset])
     out = denoise(frame_dev)
     check_frame(label, out)
     res.update(
@@ -1152,7 +1302,7 @@ def phase_flagship_max(frame: dict, card: dict, profile: bool = False,
     from deepdenoiser_tpu_torch.models import kpn
 
     what = "flagship-max"
-    per_frame = dict(kpn_apply=2, kpn_softmax=2, group_encode=1)
+    per_frame = dict(kpn_apply=2, kpn_softmax=2, group_encode=1, bias_act=EPILOGUES[what])
     clean_c, noisy_c = _frame_on_card(frame)
     wpath = str(ROOT / "weights" / "kpn_ema_f16.npz")
     preset = config.PRESETS[what]
@@ -1186,7 +1336,7 @@ def phase_flagship_max(frame: dict, card: dict, profile: bool = False,
     reset_launches()
     t_plain = time_frames(lambda: plain(frame_dev), 2 * timed_frames)
     expect_launches(f"{what} over {2 * timed_frames} plain-encode frames", read_launches(),
-                    2 * timed_frames, kpn_apply=2, kpn_softmax=2)
+                    2 * timed_frames, kpn_apply=2, kpn_softmax=2, bias_act=EPILOGUES[what])
     t_fused += time_frames(lambda: fused(frame_dev), timed_frames)
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     # the encode alone, both ways (CUDA events; launch cost included)
@@ -1227,6 +1377,7 @@ def phase_flagship_max(frame: dict, card: dict, profile: bool = False,
             torch.cuda.synchronize()
             # the plain filter apply: no K1, the head's softmax kernel as ever
             expect_launches(f"{what} fp32 {key} encode", read_launches(), kpn_softmax=2,
+                            bias_act=EPILOGUES[what],
                             **({"group_encode": 1} if key == "fused" else {}))
             del den
             torch.cuda.empty_cache()
@@ -1270,7 +1421,8 @@ def phase_aux_subsets(frame: dict, card: dict) -> dict:
     frame_dev = _fp32_frame(frame)
     counts = {}
     for aux in (("normal", "depth"), ("alpha",)):
-        per_frame = dict(kpn_apply=2, kpn_softmax=2, group_encode=1)
+        per_frame = dict(kpn_apply=2, kpn_softmax=2, group_encode=1,
+                         bias_act=EPILOGUES["base-16 depth-2"])
         mcfg = factory.ModelConfig(
             in_channels=transforms.group_input_channels(aux), out_channels=6, base_width=16,
             depth=2, act="leaky_relu", kernel_prediction=True, kpn_size=3, kpn_slots=2)
@@ -1287,7 +1439,8 @@ def phase_aux_subsets(frame: dict, card: dict) -> dict:
             torch.cuda.synchronize()
             launches = read_launches()
             expect_launches(f"group frame aux={aux} fused={fused}", launches,
-                            **(per_frame if fused else dict(kpn_apply=2, kpn_softmax=2)))
+                            **(per_frame if fused else dict(kpn_apply=2, kpn_softmax=2,
+                                                            bias_act=per_frame["bias_act"])))
             if fused:
                 counts["aux " + "+".join(aux)] = launches["group_encode"]
             del den
@@ -1358,7 +1511,7 @@ def phase_rgb(frame: dict, card: dict, timed_frames: int = 5) -> None:
         name="rgb-small", model=factory.ModelConfig(**RGB_SMALL),
         data=config.DataConfig(mode="rgb")), cfg_path)
     cli_out, cli_launches = _cli_denoise("rgb-small", frame, ["--config", str(cfg_path)], wpath, "rgb")
-    expect_launches("rgb-small cli frame", cli_launches)
+    expect_launches("rgb-small cli frame", cli_launches, bias_act=EPILOGUES["rgb-small"])
     cli_gain = _gain_db(cli_out, noisy_c, clean_c)
 
     cfg = config.validate_channels(config.load(cfg_path))
@@ -1441,9 +1594,11 @@ def phase_tiled_4k(frame: dict, card: dict, profile: bool = False, timed_frames:
     den(frame_dev)
     torch.cuda.synchronize()
     launches = read_launches()
-    expect_launches(f"{what} tiled frame", launches, kpn_apply=per_frame, kpn_softmax=per_frame)
+    expect_launches(f"{what} tiled frame", launches, kpn_apply=per_frame, kpn_softmax=per_frame,
+                    bias_act=EPILOGUES["kpn-hq"] * chunks)
     res["launches"] = launches["kpn_apply"]
     res["softmax_launches"] = launches["kpn_softmax"]
+    res["bias_act_launches"] = launches["bias_act"]
     t_tiled, res["peak_tiled"], out = _timed(den, frame_dev, timed_frames, warmup=0)
     check_frame(f"{what} tiled", out, (UHD_H, UHD_W))
     res["gain_tiled"] = _gain_db(out["combined"], noisy_c, clean_c)
@@ -1457,7 +1612,7 @@ def phase_tiled_4k(frame: dict, card: dict, profile: bool = False, timed_frames:
     reset_launches()
     t_whole, res["peak_whole"], out = _timed(den, frame_dev, timed_frames)
     expect_launches(f"{what} whole frames", read_launches(), timed_frames + 2, kpn_apply=8,
-                    kpn_softmax=8)
+                    kpn_softmax=8, bias_act=EPILOGUES["kpn-hq"])
     check_frame(f"{what} whole", out, (UHD_H, UHD_W))
     res["gain_whole"] = _gain_db(out["combined"], noisy_c, clean_c)
     del den, out, frame_dev
@@ -1490,7 +1645,8 @@ def phase_tiled_4k(frame: dict, card: dict, profile: bool = False, timed_frames:
             outs[key] = den(frame_dev)
             torch.cuda.synchronize()
             expect_launches(f"kpn-hq 1080p fp32 {key}", read_launches(),
-                            kpn_apply=8 * -(-g.n_tiles // 4), kpn_softmax=8 * -(-g.n_tiles // 4))
+                            kpn_apply=8 * -(-g.n_tiles // 4), kpn_softmax=8 * -(-g.n_tiles // 4),
+                            bias_act=EPILOGUES["kpn-hq"] * -(-g.n_tiles // 4))
             del den
             torch.cuda.empty_cache()
     check_frame("kpn-hq 1080p fp32 tiled", outs["tiled"])
@@ -1533,7 +1689,7 @@ def phase_feather(frame: dict, card: dict, timed_frames: int = 3) -> dict:
             torch.cuda.synchronize()
             launches = read_launches()
             expect_launches(f"{what} fp32 {key}", launches, group_encode=1, kpn_apply=2 * chunks,
-                            kpn_softmax=2 * chunks)
+                            kpn_softmax=2 * chunks, bias_act=EPILOGUES["flagship-max"] * chunks)
             if key == "feather":
                 res["launches"] = launches
             check_frame(f"{what} fp32 {key}", outs[key])
@@ -1596,7 +1752,8 @@ def phase_multiscale(frame: dict, card: dict, timed_frames: int = 3) -> None:
     frame_dev = _fp32_frame(frame)
     reset_launches()
     times, peak, out = _timed(den, frame_dev, timed_frames)
-    expect_launches("unet-multiscale", read_launches())
+    expect_launches("unet-multiscale", read_launches(), timed_frames + 2,
+                    bias_act=EPILOGUES["unet-multiscale"])
     check_frame("unet-multiscale", out)
     log(f"[unet-multiscale] 1080p joint frame, 3 scales, random weights, fp32, plane "
         f"{grid.net_h}x{grid.net_w} (halo {grid.halo}): finite; {statistics.median(times):.2f} "
@@ -1677,7 +1834,9 @@ def phase_sequence(frame: dict, card: dict, n_frames: int = 4) -> dict:
     reset_launches()
     report = sequence.run_sequence(cfg.model, cfg.infer, weights_io.load_release_params(wpath),
                                    frames, gts, mode="joint")
-    expect_launches("sequence", read_launches())
+    # a warm-up frame, then the frames twice: unsynchronised, then each closed by a synchronize
+    expect_launches("sequence", read_launches(), 2 * n_frames + 1,
+                    bias_act=EPILOGUES["flagship-hq"])
     _check_report("run_sequence", report, n_frames, (FRAME_H, FRAME_W))
     tm = metrics.tonemap_for_metrics
     ref = tm(torch.from_numpy(gts[0]).to("cuda"))[None]
@@ -2015,7 +2174,7 @@ def phase_train_parity(card: dict) -> None:
         gpu, gm = step(gpu, {k: v.to("cuda") for k, v in batch.items()})
         torch.cuda.synchronize()
         expect_launches("train-parity step", read_launches(), kpn_apply=8, kpn_apply_bwd_weights=8,
-                        kpn_softmax=8)
+                        kpn_softmax=8, bias_act=EPILOGUES["base-16 depth-2"])
     cpu = train_lib.create_state(mcfg, tcfg, seed=0, device="cpu")
     cpu, cm = step(cpu, batch)
     rel = {k: abs(float(gm[k]) - float(cm[k])) / abs(float(cm[k])) for k in ("loss", "grad_norm")}
@@ -2250,7 +2409,8 @@ def phase_train(frame: dict, card: dict, profile: bool = False, parent_csrc=None
                              f"{res['k1_eval_launches']} in the eval; want {8 * TRAIN_STEPS}, "
                              f"{per_eval}")
     expect_launches("cli train", res["launches"], kpn_apply=8 * TRAIN_STEPS + per_eval,
-                    kpn_apply_bwd_weights=8 * TRAIN_STEPS, kpn_softmax=8 * TRAIN_STEPS + per_eval)
+                    kpn_apply_bwd_weights=8 * TRAIN_STEPS, kpn_softmax=8 * TRAIN_STEPS + per_eval,
+                    bias_act=EPILOGUES["kpn-hq"] * (TRAIN_STEPS + per_eval // 8))
     recs = _metrics(workdir / "metrics_train.jsonl")
     if [r["step"] for r in recs] != list(range(1, TRAIN_STEPS + 1)) or not all(
             math.isfinite(r["loss"]) for r in recs):
@@ -2282,7 +2442,8 @@ def phase_train(frame: dict, card: dict, profile: bool = False, parent_csrc=None
     torch.cuda.synchronize()
     resumed = RESUME_STEPS - TRAIN_STEPS
     expect_launches("cli train resumed", read_launches(), kpn_apply=8 * resumed,
-                    kpn_apply_bwd_weights=8 * resumed, kpn_softmax=8 * resumed)
+                    kpn_apply_bwd_weights=8 * resumed, kpn_softmax=8 * resumed,
+                    bias_act=EPILOGUES["kpn-hq"] * resumed)
     recs = _metrics(workdir / "metrics_train.jsonl")
     ckpts = sorted(int(p.name) for p in (workdir / "checkpoints").iterdir() if p.name.isdigit())
     if [r["step"] for r in recs] != list(range(1, RESUME_STEPS + 1)) or ckpts != [10, 20, 30]:
@@ -2299,7 +2460,8 @@ def phase_train(frame: dict, card: dict, profile: bool = False, parent_csrc=None
                    "--out", str(out_exr)]) != 0:
         raise AssertionError("cli denoise --checkpoint failed")
     torch.cuda.synchronize()
-    expect_launches("cli denoise --checkpoint", read_launches(), kpn_apply=8, kpn_softmax=8)
+    expect_launches("cli denoise --checkpoint", read_launches(), kpn_apply=8, kpn_softmax=8,
+                    bias_act=EPILOGUES["kpn-hq"])
     out = torch.from_numpy(exr.read_exr(out_exr))
     if tuple(out.shape) != (FRAME_H, FRAME_W, 3) or not torch.isfinite(out).all():
         raise AssertionError(f"cli denoise --checkpoint: output {tuple(out.shape)} not finite")
@@ -2333,7 +2495,7 @@ def phase_train(frame: dict, card: dict, profile: bool = False, parent_csrc=None
         with full_fp32() if dtype == "float32" else contextlib.nullcontext():
             losses, times = _steps_timed(state, step, batch, n)
         expect_launches(f"{label} train steps", read_launches(), n, kpn_apply=k1,
-                        kpn_apply_bwd_weights=k1, kpn_softmax=k1)
+                        kpn_apply_bwd_weights=k1, kpn_softmax=k1, bias_act=EPILOGUES[preset])
         ms = statistics.median(times[TRAIN_WARMUP:])
         res[label] = {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                       "first_loss": losses[0], "last_loss": losses[-1], "steps": n}
@@ -2395,10 +2557,14 @@ MC_DETERMINISTIC = ("normal", "depth", "alpha", "emission", "environment", "diff
 DEVICE_BATCH_STEPS = 10  # make_train_step steps fed by training_batch(family="mixed-mc")
 
 
-def _holdout_frames(h: int, w: int) -> dict:
+def _holdout_frames(h: int, w: int, path: Path) -> Path:
     """bench.py's two holdout families at h x w with its Gaussian noise
     (add_mc_noise(spp=4, seed=1)): {family: (noisy passes, clean combined,
-    seconds)}. numpy on the host; run in a worker process beside the card."""
+    seconds)}, pickled to `path`, which it returns. numpy on the host; run
+    in a worker process beside the card. The frames (about 0.8 GB at 1080p)
+    go through a file, not the pool's pipe: the main process's thread that
+    unpickles a result holds the GIL, and would stall the timed frames of
+    whichever phase runs when the result arrives."""
     from deepdenoiser_tpu_torch.data import synthetic, synthetic_boxes, synthetic_spheres
 
     out = {}
@@ -2407,7 +2573,16 @@ def _holdout_frames(h: int, w: int) -> dict:
         clean = mod.generate_clean_passes(h, w, seed=0)
         out[fam] = (synthetic.add_mc_noise(clean, spp=4, seed=1), clean["combined"],
                     time.perf_counter() - t0)
-    return out
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+    return path
+
+
+@functools.lru_cache(maxsize=1)
+def _load_holdouts(path: Path) -> dict:
+    with open(path, "rb") as f:
+        return pickle.load(f)
 
 
 def _near_edges(ref: dict) -> torch.Tensor:
@@ -2511,7 +2686,7 @@ def phase_mc(frame: dict, card: dict, holdouts) -> dict:
             for seed, c in res["check"].items()) + f" (limit {MC_RMS_RATIO})")
 
     t0 = time.perf_counter()
-    hold = holdouts.result()
+    hold = _load_holdouts(holdouts.result())
     dev = torch.device("cuda")
     others = {"fourier": frame}
     others.update({fam: {"noisy": n, "clean": {"combined": c}} for fam, (n, c, _) in hold.items()})
@@ -2592,7 +2767,7 @@ def phase_device_batch(card: dict, train_res: dict) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
     launches = read_launches()
     expect_launches("device-batch train steps", launches, DEVICE_BATCH_STEPS, kpn_apply=8,
-                    kpn_apply_bwd_weights=8, kpn_softmax=8)
+                    kpn_apply_bwd_weights=8, kpn_softmax=8, bias_act=EPILOGUES["kpn-hq"])
     step_losses, step_times = _steps_timed(state, step, make("mixed-mc"), DEVICE_BATCH_STEPS)
     if not all(math.isfinite(v) for v in losses + step_losses):
         raise AssertionError(f"device-batch train: non-finite loss {losses} {step_losses}")
@@ -2734,7 +2909,7 @@ def phase_multi_device(frame: dict, card: dict) -> dict:
     whole, wgrid = pipeline.make_joint_frame_denoiser(cfg.model, spatial, FRAME_H, FRAME_W, params)
     ms, lo, hi, peak, launches = _timed_frames(whole, frame_dev, MD_TIMED_FRAMES)
     expect_launches("kpn-hq whole frame, certified halo", launches, MD_TIMED_FRAMES, kpn_apply=8,
-                    kpn_softmax=8)
+                    kpn_softmax=8, bias_act=EPILOGUES["kpn-hq"])
     whole_mpx = wgrid.net_h * wgrid.net_w / 1e6
     res["whole"] = {"ms": ms, "peak_gib": peak, "mpx": whole_mpx,
                     "gain_db": _gain_db(whole(frame_dev)["combined"], noisy_c, clean_c)}
@@ -2754,7 +2929,7 @@ def phase_multi_device(frame: dict, card: dict) -> dict:
                                                     mesh=mesh)
         ms, lo, hi, peak, launches = _timed_frames(den, frame_dev, MD_TIMED_FRAMES)
         expect_launches(f"kpn-hq {n} bands", launches, MD_TIMED_FRAMES, kpn_apply=8 * n,
-                        kpn_softmax=8 * n)
+                        kpn_softmax=8 * n, bias_act=EPILOGUES["kpn-hq"] * n)
         out = den(frame_dev)
         check_frame(f"kpn-hq {n} bands", out)
         gain = _gain_db(out["combined"], noisy_c, clean_c)
@@ -2766,7 +2941,7 @@ def phase_multi_device(frame: dict, card: dict) -> dict:
             out32 = den32(frame_dev)
             torch.cuda.synchronize()
             expect_launches(f"kpn-hq {n} bands fp32", read_launches(), kpn_apply=8 * n,
-                            kpn_softmax=8 * n)
+                            kpn_softmax=8 * n, bias_act=EPILOGUES["kpn-hq"] * n)
         err = frames_agree(f"kpn-hq {n} bands fp32 vs the whole frame", out32, ref32, MD_TOL)
         gain32 = _gain_db(out32["combined"], noisy_c, clean_c)
         del den32, out32
@@ -2796,7 +2971,7 @@ def phase_multi_device(frame: dict, card: dict) -> dict:
                                                  mesh=_md_mesh(n, "spatial"))
     ms, lo, hi, peak, launches = _timed_frames(gden, frame_dev, MD_TIMED_FRAMES)
     expect_launches(f"flagship-max {n} bands", launches, MD_TIMED_FRAMES, kpn_apply=2 * n,
-                    kpn_softmax=2 * n, group_encode=1)
+                    kpn_softmax=2 * n, group_encode=1, bias_act=EPILOGUES["flagship-max"] * n)
     gain = _gain_db(gden(frame_dev)["combined"], noisy_c, clean_c)
     del gden
     with full_fp32():
@@ -2840,7 +3015,8 @@ def phase_multi_device(frame: dict, card: dict) -> dict:
     torch.cuda.synchronize()
     batch_ms = (time.perf_counter() - t0) * 1e3
     launches = read_launches()
-    expect_launches("kpn-hq frame batch", launches, MD_BATCH_FRAMES, kpn_apply=8, kpn_softmax=8)
+    expect_launches("kpn-hq frame batch", launches, MD_BATCH_FRAMES, kpn_apply=8, kpn_softmax=8,
+                    bias_act=EPILOGUES["kpn-hq"])
     batch_peak = torch.cuda.max_memory_allocated() / 2**30
     if tuple(got.shape) != (MD_BATCH_FRAMES, FRAME_H, FRAME_W, 3) or not torch.isfinite(got).all():
         raise AssertionError(f"frame batch: {tuple(got.shape)}")
@@ -2889,7 +3065,7 @@ def phase_multi_device(frame: dict, card: dict) -> dict:
     for r in ranks:
         for lc in r["launches"]:
             expect_launches("DP rank train step", lc, kpn_apply=8, kpn_apply_bwd_weights=8,
-                            kpn_softmax=8)
+                            kpn_softmax=8, bias_act=EPILOGUES["kpn-hq"])
     if not torch.equal(ranks[0]["params"], ranks[1]["params"]) or ranks[0]["mets"] != ranks[1]["mets"]:
         raise AssertionError("DP ranks hold different parameters or metrics")
     step = train_lib.make_train_step(mcfg, tcfg.train)
@@ -2995,7 +3171,7 @@ def phase_multi_device(frame: dict, card: dict) -> dict:
         raise AssertionError("cli denoise --checkpoint of the 2-rank run failed")
     torch.cuda.synchronize()
     expect_launches("denoise --checkpoint of the 2-rank run", read_launches(), kpn_apply=8,
-                    kpn_softmax=8)
+                    kpn_softmax=8, bias_act=EPILOGUES["kpn-hq"])
     out = torch.from_numpy(exr.read_exr(out_exr))
     if tuple(out.shape) != (FRAME_H, FRAME_W, 3) or not torch.isfinite(out).all():
         raise AssertionError(f"denoise of the 2-rank checkpoint: {tuple(out.shape)}")
@@ -3072,10 +3248,14 @@ def _recipe_run(out: Path, teacher: bool) -> dict:
         raise AssertionError(f"recipe: K1 launches in validation {in_val}, want 8 in each of "
                              f"{2 * pretrain_flagship.VAL_BATCHES} batches")
     # validation's launches taken out: K1's as counted, the softmax's one a slot (8 a batch)
+    # and the conv epilogues' (the student's 21 a batch)
     steps = {**launches, "kpn_apply": launches["kpn_apply"] - sum(in_val),
-             "kpn_softmax": launches["kpn_softmax"] - 8 * n_val}
+             "kpn_softmax": launches["kpn_softmax"] - 8 * n_val,
+             "bias_act": launches["bias_act"] - EPILOGUES["kpn-hq"] * n_val}
+    # a step: the student's forward, and the teacher's where there is one
     expect_launches(f"recipe steps (teacher {teacher})", steps, RELEASE_STEPS, kpn_apply=8,
-                    kpn_apply_bwd_weights=8, kpn_softmax=8)
+                    kpn_apply_bwd_weights=8, kpn_softmax=8,
+                    bias_act=EPILOGUES["kpn-hq"] + (EPILOGUES[RELEASE_TEACHER] if teacher else 0))
     losses = [r["loss"] for r in summary["log"]]
     if [r["step"] for r in summary["log"]] != list(range(RELEASE_LOG_EVERY, RELEASE_STEPS + 1,
                                                           RELEASE_LOG_EVERY)) \
@@ -3124,7 +3304,7 @@ def phase_release(frame: dict, card: dict) -> dict:
         torch.cuda.synchronize()
         launches = read_launches()
         expect_launches(f"golden {fam}", launches, kpn_apply=2 if fam == "kpn" else 0,
-                        kpn_softmax=2 if fam == "kpn" else 0)
+                        kpn_softmax=2 if fam == "kpn" else 0, bias_act=EPILOGUES[f"golden {fam}"])
         res["goldens"][fam] = {"max_abs_dev": dev, "kpn_apply": launches["kpn_apply"],
                                "kpn_softmax": launches["kpn_softmax"]}
     log("[release] TF goldens on the card (fp32, TF32 off), max|d| against io.npz y, limit "
@@ -3151,7 +3331,8 @@ def phase_release(frame: dict, card: dict) -> dict:
         for what, launches in (("make", make_launches), ("check", check_launches)):
             expect_launches(f"made golden {fam}, {what}", launches,
                             kpn_apply=2 if fam == "kpn" else 0,
-                            kpn_softmax=2 if fam == "kpn" else 0)
+                            kpn_softmax=2 if fam == "kpn" else 0,
+                            bias_act=EPILOGUES[f"golden {fam}"])
         # held independently of the card: the card-made y against the CPU's
         # forward of the same checkpoint (the plain filter apply, no cuDNN),
         # and the checkpoint's bytes against a CPU make's
@@ -3200,7 +3381,7 @@ def phase_release(frame: dict, card: dict) -> dict:
             torch.cuda.synchronize()
             launches = read_launches()
             expect_launches("kpn-hq frame, release / round-tripped weights", launches,
-                            kpn_apply=8, kpn_softmax=8)
+                            kpn_apply=8, kpn_softmax=8, bias_act=EPILOGUES["kpn-hq"])
             del den
     check_frame("kpn-hq with round-tripped weights", outs[1])
     if set(outs[0]) != set(outs[1]) or not all(torch.equal(outs[0][k], outs[1][k])
@@ -3256,7 +3437,7 @@ def phase_release(frame: dict, card: dict) -> dict:
     cli_out, cli_launches = _cli_denoise("kpn-hq-export", frame, ["--preset", "kpn-hq"], str(npz),
                                          "joint")
     expect_launches("kpn-hq cli frame with the exported npz", cli_launches, kpn_apply=8,
-                    kpn_softmax=8)
+                    kpn_softmax=8, bias_act=EPILOGUES["kpn-hq"])
     res["export"] = {"bytes": npz.stat().st_size, "shipped_bytes": shipped.stat().st_size,
                      "arrays": len(layout), "kpn_apply": cli_launches["kpn_apply"],
                      "gain_db": _gain_db(cli_out, noisy_c, clean_c),
@@ -3368,10 +3549,12 @@ def _run_tool(name: str, argv: list) -> dict:
     return _run_counted(f"tools/{name} {' '.join(argv)}", lambda: module.main(argv))
 
 
-def _per_frame(what: str, run: dict, k1_per_frame: list, **other_per_frame) -> int:
+def _per_frame(what: str, run: dict, k1_per_frame: list, epilogues_per_frame: list,
+               **other_per_frame) -> int:
     """Check each frame denoiser's K1 launches a frame (one entry per
-    denoiser, in order) and that no other kernel launched but as given per
-    frame; returns the frames denoised."""
+    denoiser, in order), the conv epilogues of all its frames (one entry per
+    denoiser: launches a frame) and that no other kernel launched but as
+    given per frame; returns the frames denoised."""
     got = [(n, k) for n, k in run["denoisers"]]
     if len(got) != len(k1_per_frame) or any(
             n < 1 or k != want * n for (n, k), want in zip(got, k1_per_frame)):
@@ -3381,6 +3564,7 @@ def _per_frame(what: str, run: dict, k1_per_frame: list, **other_per_frame) -> i
     want = {name: 0 for name in run["launches"]}
     # the tools run the head as it is: its softmax launches once before each K1 launch
     want["kpn_apply"] = want["kpn_softmax"] = sum(k for _, k in got)
+    want["bias_act"] = sum(n * e for (n, _), e in zip(got, epilogues_per_frame))
     for name, per in other_per_frame.items():
         want[name] = per * frames
     if run["launches"] != want:
@@ -3429,7 +3613,7 @@ def phase_tools(frame: dict, card: dict, kpn_res: dict, multilayer, corpus) -> d
     res["bench_model"] = {}
     for model, k1 in (("kpn-hq", 8), ("kpn", 2)):
         run = tool(f"bench_model {model}", "bench_model", ["--model", model])
-        _per_frame(f"bench_model {model}", run, [k1])
+        _per_frame(f"bench_model {model}", run, [k1], [EPILOGUES[model]])
         measured(f"tools/bench_model {model} frame", run)
         _gains_positive(f"bench_model {model}", run["json"])
         res["bench_model"][model] = run["json"]
@@ -3446,7 +3630,8 @@ def phase_tools(frame: dict, card: dict, kpn_res: dict, multilayer, corpus) -> d
                     (sweep_4k.CONFIGS[2], 32)):
         label = " ".join(cfg)
         run = tool(f"bench_4k {label}", "bench_4k", ["--model", "kpn-hq", "--frames", "2", *cfg])
-        _per_frame(f"bench_4k {label}", run, [k1])
+        # one network call a chunk of tiles, as one a K1 slot x 8
+        _per_frame(f"bench_4k {label}", run, [k1], [EPILOGUES["kpn-hq"] * k1 // 8])
         measured(f"tools/bench_4k kpn-hq frame, {label}", run)
         j = run["json"]
         if not j["psnr_mean"] > j["psnr_noisy_mean"] or len(j["latency_ms"]) != 2:
@@ -3460,7 +3645,7 @@ def phase_tools(frame: dict, card: dict, kpn_res: dict, multilayer, corpus) -> d
     run = tool("bench_sequence", "bench_sequence",
                ["--model", "kpn-hq", "--weights", str(ROOT / "weights" / "kpn_hq_ema_f16.npz"),
                 "--frames", "4"])
-    _per_frame("bench_sequence", run, [8])
+    _per_frame("bench_sequence", run, [8], [EPILOGUES["kpn-hq"]])
     measured("tools/bench_sequence kpn-hq 4K frame", run)
     seq = res["bench_sequence"] = run["json"]
     if not seq["gain_db_mean"] > 0 or len(seq["frames"]) != 4:
@@ -3477,7 +3662,7 @@ def phase_tools(frame: dict, card: dict, kpn_res: dict, multilayer, corpus) -> d
                 "--steps", str(TOOLS_PIPE_STEPS), "--shards", str(shards)])
     steps = 2 * (TOOLS_PIPE_STEPS + 1)  # two timed paths, each after a warm-up step
     expect_launches("bench_input_pipeline", run["launches"], steps, kpn_apply=8,
-                    kpn_apply_bwd_weights=8, kpn_softmax=8)
+                    kpn_apply_bwd_weights=8, kpn_softmax=8, bias_act=EPILOGUES["kpn-hq"])
     pipe = res["bench_input_pipeline"] = dict(
         run["json"], steps=steps, launches_per_step={k: v / steps for k, v in run["launches"].items()})
     rates = ("host_iter_batches_per_s", "grain_2dispatch_steps_per_s", "synth_fused_steps_per_s",
@@ -3494,7 +3679,7 @@ def phase_tools(frame: dict, card: dict, kpn_res: dict, multilayer, corpus) -> d
     # eval_holdout and eval_zoo
     size = ["--height", str(TOOLS_EVAL_H), "--width", str(TOOLS_EVAL_W), "--frames", "1"]
     run = tool("eval_holdout", "eval_holdout", [*size, "--spp", "4"])
-    _per_frame("eval_holdout", run, [0] * 4)
+    _per_frame("eval_holdout", run, [0] * 4, [EPILOGUES["flagship"]] * 4)
     res["eval_holdout"] = run["json"]["eval_holdout"]
     for row in res["eval_holdout"]:
         _gains_positive(f"eval_holdout {row['family']}", row)
@@ -3503,7 +3688,7 @@ def phase_tools(frame: dict, card: dict, kpn_res: dict, multilayer, corpus) -> d
         for r in res["eval_holdout"]) + f" | {card['smi']}")
     zoo_models = (("kpn-hq", 8), ("flagship-hq", 0), ("kpn", 2))
     run = tool("eval_zoo", "eval_zoo", ["--models", *(m for m, _ in zoo_models), *size])
-    _per_frame("eval_zoo", run, [k for _, k in zoo_models])
+    _per_frame("eval_zoo", run, [k for _, k in zoo_models], [EPILOGUES[m] for m, _ in zoo_models])
     for i, (model, _) in enumerate(zoo_models):
         measured(f"tools/eval_zoo {model} frame", run, i)
     res["eval_zoo"] = run["json"]["zoo"]
@@ -3521,7 +3706,7 @@ def phase_tools(frame: dict, card: dict, kpn_res: dict, multilayer, corpus) -> d
     # profile: a Chrome trace of two flagship frames
     trace_dir = WORK / "trace"
     run = tool("profile", "profile", ["--iters", "2", "--out", str(trace_dir)])
-    _per_frame("profile", run, [0])
+    _per_frame("profile", run, [0], [EPILOGUES["flagship"]])
     names = {e.get("name") for e in json.loads((trace_dir / "trace.json").read_text())["traceEvents"]}
     if not {"frame_0", "frame_1"} <= names:
         raise AssertionError("profile: the trace lacks frame_0 / frame_1")
@@ -3535,7 +3720,9 @@ def phase_tools(frame: dict, card: dict, kpn_res: dict, multilayer, corpus) -> d
         res["sweep_bench"] = sweep_bench.measure(*sweep_bench.CONFIGS[0], noisy)
         res["sweep_joint"] = sweep_joint.measure(sweep_joint.CONFIGS[0], noisy)
     res["s"]["sweeps"] = time.perf_counter() - t0
-    expect_launches("sweeps", read_launches())
+    # each measure(): 2 warm-up frames and K x SAMPLES timed, one network call a frame
+    expect_launches("sweeps", read_launches(), 2 * (2 + sweep_bench.K * sweep_bench.SAMPLES),
+                    bias_act=EPILOGUES["sweep s2d depth-3"])
     log(f"[tools] sweep_bench first config (group, s2d, base 48) {res['sweep_bench']:.2f} "
         f"ms/frame; sweep_joint first config (joint, s2d, base 64) {res['sweep_joint']:.2f} "
         f"ms/frame (random weights) | {card['smi']}")
@@ -3549,7 +3736,9 @@ def phase_tools(frame: dict, card: dict, kpn_res: dict, multilayer, corpus) -> d
         run = tool("diag_multiscale", "diag_multiscale", ["--frames", "1"])
     finally:
         eval_zoo.load_model_params = load
-    _per_frame("diag_multiscale", run, [0] * 3)
+    # its base UNet (21 convs) at 3, 2 and 1 scales
+    _per_frame("diag_multiscale", run, [0] * 3,
+               [EPILOGUES["unet-multiscale"] // 3 * n for n in (3, 2, 1)])
     res["diag_multiscale"] = run["json"]["multiscale_diag"]
     if [r["n_scales"] for r in res["diag_multiscale"]] != [3, 2, 1] or not all(
             math.isfinite(v) for r in res["diag_multiscale"] for v in r.values()):
@@ -3617,7 +3806,7 @@ def phase_bench(frame: dict, card: dict, kpn_res: dict, hq_res: dict, holdouts,
     ready, as the JAX script's does). The headline ms within 3 % of phases
     5 and 4's medians in this call."""
     dev = torch.device("cuda")
-    hold = holdouts.result()
+    hold = _load_holdouts(holdouts.result())
     frames = {}
     for fam, (noisy, clean) in (("fourier", (frame["noisy"], frame["clean"]["combined"])),
                                 ("holdout", hold["spheres"][:2]), ("holdout2", hold["boxes"][:2])):
@@ -3634,7 +3823,7 @@ def phase_bench(frame: dict, card: dict, kpn_res: dict, hq_res: dict, holdouts,
              kpn_res)):
         run = _run_counted(f"tools/bench {' '.join(argv)}",
                            lambda: bench.run(bench.parse_args(argv), frames))
-        _per_frame(f"bench {label}", run, k1)
+        _per_frame(f"bench {label}", run, k1, [EPILOGUES[m] for m in models])
         frames_denoised, k1_launches = run["denoisers"][0]  # the headline denoiser, as counted
         rec = run["json"]
         _check_bench(f"bench {label}", rec, models)
@@ -3663,7 +3852,7 @@ def phase_roofline(card: dict) -> dict:
     res = {}
     for model in ROOFLINE_MODELS:
         run = _run_tool("roofline", ["--model", model, "--border", "32"])
-        _per_frame(f"roofline {model}", run, [8 if model == "kpn-hq" else 0])
+        _per_frame(f"roofline {model}", run, [8 if model == "kpn-hq" else 0], [EPILOGUES[model]])
         frames, k1 = run["denoisers"][0]
         rep = json.loads(run["out"][run["out"].index("{"):])
         if not (0 < rep["mfu"] <= 1 and 0 < rep["hbm_utilization"] <= 1.05):
@@ -3779,6 +3968,7 @@ def _run_phases(phase, card: dict, holdouts, multilayer, corpus, exr_turns,
     phase("build", phase_build)
     kern = phase("kernels", phase_kernels, card)
     soft = phase("kpn-softmax", phase_kpn_softmax, card)
+    epilogue = phase("bias-act", phase_bias_act, card)
     ingest = phase("ingest-kernels", phase_ingest_kernels, card)
 
     from deepdenoiser_tpu_torch.data import exr
@@ -3802,8 +3992,9 @@ def _run_phases(phase, card: dict, holdouts, multilayer, corpus, exr_turns,
           kernel_launches_per_frame=0, check_fp32=True, profile=profile, timed_frames=5)
     uhd_res = phase("tiled-4k", phase_tiled_4k, frame, card, profile=profile)
     feather_res = phase("feather", phase_feather, frame, card)
+    tir_res = {}
     for preset in ("tiramisu-lt1", "tiramisu-fast", "tiramisu"):
-        phase(preset, phase_preset, preset, preset.replace("-", "_") + "_ema_f16.npz", frame,
+        tir_res[preset] = phase(preset, phase_preset, preset, preset.replace("-", "_") + "_ema_f16.npz", frame,
               card, kernel_launches_per_frame=0, check_fp32=True,
               profile=profile and preset == "tiramisu-lt1", timed_frames=5,
               gain_tol=TIRAMISU_GAIN_TOL_DB)
@@ -3821,8 +4012,8 @@ def _run_phases(phase, card: dict, holdouts, multilayer, corpus, exr_turns,
     bench_res = phase("bench", phase_bench, frame, card, kpn_res, hq_res, holdouts, mc_res)
     roof_res = phase("roofline", phase_roofline, card)
     exr_res = phase("exr", phase_exr, card, exr_turns)
-    return (kern, soft, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res,
-            feather_res, train_kern, train_res, mc_res, batch_res, md_res, rel_res, tools_res,
+    return (kern, soft, epilogue, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res,
+            feather_res, tir_res, train_kern, train_res, mc_res, batch_res, md_res, rel_res, tools_res,
             bench_res, roof_res, exr_res)
 
 
@@ -3851,7 +4042,7 @@ def main(argv=None) -> int:
     # card's phases, for phases mc and tools
     with concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn")) as pool:
-        holdouts = pool.submit(_holdout_frames, FRAME_H, FRAME_W)
+        holdouts = pool.submit(_holdout_frames, FRAME_H, FRAME_W, WORK / "holdouts_1080p.pkl")
         MULTILAYER_EXR.parent.mkdir(parents=True, exist_ok=True)
         multilayer = pool.submit(_write_multilayer, MULTILAYER_EXR, FRAME_H, FRAME_W)
         corpus = pool.submit(_pipe_corpus, TRAIN_CROP)
@@ -3859,9 +4050,9 @@ def main(argv=None) -> int:
         exr_turns = pool.submit(_exr_turns, MULTILAYER_EXR)
         res = _run_phases(phase, card, holdouts, multilayer, corpus, exr_turns, args.profile,
                           args.parent_csrc)
-    kern, soft, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res, feather_res, \
-        train_kern, train_res, mc_res, batch_res, md_res, rel_res, tools_res, bench_res, \
-        roof_res, exr_res = res
+    kern, soft, epilogue, ingest, kpn_res, max_res, aux_counts, per_pass_counts, uhd_res, \
+        feather_res, tir_res, train_kern, train_res, mc_res, batch_res, md_res, rel_res, tools_res, \
+        bench_res, roof_res, exr_res = res
     log("[time] " + ", ".join(f"{k} {v:.0f}" for k, v in seconds.items()) + " s")
 
     group, tile, train_fwd = kern["group"], kern["tile"], kern["train"]
@@ -3966,6 +4157,24 @@ def main(argv=None) -> int:
         by_shape={path: {key: t[key] for key in (
             "shape", "slots", "ms", "plain_ms", "bound_ms", "moved32_bound_ms", "moved64_bound_ms")}
             for path, t in soft["by_path"].items()},
+    ))
+    # launches: of the kpn-hq cli frame, as K1's row; each path's as its
+    # phase counted them on the card
+    kernels.append(_kernel_row(
+        "bias_act", "deepdenoiser_tpu_torch/csrc/bias_act.cu",
+        "none: XLA fuses a conv's bias and activation into the conv",
+        kpn_res["cli_bias_act_launches"], epilogue,
+        launches_by_path={
+            "kpn-hq cli frame": kpn_res["cli_bias_act_launches"],
+            "flagship-max cli frame": max_res["cli_launches"]["bias_act"],
+            "kpn-hq tiled 4K frame": uhd_res["bias_act_launches"],
+            "tiramisu-lt1 cli frame": tir_res["tiramisu-lt1"]["cli_bias_act_launches"],
+            "flagship-max feathered frame": feather_res["launches"]["bias_act"],
+            "kpn-hq train step on device batches": batch_res["launches"]["bias_act"],
+        },
+        by_shape={path: {key: t[key] for key in (
+            "shape", "launches_per_call", "calls_per_frame", "ms", "plain_ms", "library_ms",
+            "bound_ms", "largest_ms", "largest_bound_ms")} for path, t in epilogue["by_path"].items()},
     ))
     group_t = ingest.pop("group_encode")
     for name, t in ingest.items():

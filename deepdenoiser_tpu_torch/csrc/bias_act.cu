@@ -1,0 +1,248 @@
+// A conv's epilogue for Hopper (sm_90a), bf16 or fp32, in one pass:
+//
+//   out = act(round(z + b))      round: to the tensor's dtype
+//
+// over a dense (N, C, H, W) conv output z, channels-last or contiguous NCHW,
+// with b the layer's fp32 bias, rounded to the dtype first, as
+// `b.to(dtype)` does. act is none, relu, leaky_relu (slope 0.2), elu,
+// tanh-gelu or silu. The arithmetic is the plain chain's
+// (ops/bias_act.py, bias_act_plain), which is what PyTorch runs after a
+// cuDNN conv: the bias added in fp32 and rounded, the activation computed
+// in fp32 on the rounded sum and rounded again, with PyTorch's expressions
+// for each activation. So none, relu and leaky_relu give the plain chain's
+// bits; elu, gelu and silu may differ from it in the last bit, where
+// expm1f, tanhf and expf are contracted or ordered otherwise.
+//
+// It replaces no TPU kernel: XLA fuses the bias and the activation into
+// the conv on the TPU. In PyTorch the two were passes of their own after
+// cuDNN: a broadcast add of the bias over the channels-last output, which
+// PyTorch runs as a strided elementwise loop (about 40 % of its bytes
+// floor), then the activation, which reads and writes the tensor again.
+//
+// What bounds it: memory. Each element is read once and written once with
+// a few operations between. At kpn-hq's 1080p plane the 20 conv outputs and
+// the 200-channel head are 3.78 GB of bf16 a frame: 7.56 GB moved, 2.26 ms
+// at 3.35 TB/s.
+//
+// The design, against that bound:
+//   - The tensor is a flat array of n elements whatever C is (50 channels
+//     do not divide a vector): thread i of the grid owns 16 B vectors i,
+//     i + NT, ... of its block's span, UNROLL of them, all loaded before
+//     the first is used, so each thread has UNROLL independent 16 B loads
+//     in flight (NT = 128 threads, 8 KB a block).
+//   - An element's channel is found once a vector: e % C channels-last,
+//     (e / HW) % C in NCHW; the rest of the vector steps the channel on.
+//   - The bias, rounded to the dtype, is staged in shared memory while the
+//     block's loads are in flight (C floats, at most 48 KB).
+//   - The output may be z itself: the frame path writes in place, with no
+//     allocation. Each element is read before it is written, by the same
+//     thread, so the in-place write needs no ordering.
+//   - z and out are 16 B aligned (a fresh allocation is; the wrapper
+//     refuses other addresses); the elements after the last whole vector
+//     are done by the last block.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int NT = 128;       // threads a block
+constexpr int UNROLL = 4;     // 16 B vectors a thread
+constexpr int MAX_C = 12288;  // channels: the staged bias fits 48 KB of shared memory
+
+enum Act { NONE = 0, RELU = 1, LEAKY_RELU = 2, ELU = 3, GELU = 4, SILU = 5 };
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);  // round to nearest even, as PyTorch's conversion
+}
+
+// x rounded to T, as a float
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f<T>(from_f<T>(x));
+}
+
+// PyTorch's CUDA expressions, in fp32 (its opmath type for bf16 and fp32)
+template <int ACT>
+__device__ __forceinline__ float activate(float y) {
+  if (ACT == RELU) return isnan(y) ? y : fmaxf(y, 0.0f);  // clamp_min(y, 0)
+  if (ACT == LEAKY_RELU) return y > 0.0f ? y : y * 0.2f;
+  if (ACT == ELU) return y > 0.0f ? y : expm1f(y);  // alpha = scale = input_scale = 1
+  if (ACT == GELU) {
+    // M_SQRT2 * M_2_SQRTPI * 0.5, taken in double and rounded once
+    constexpr float kBeta =
+        static_cast<float>(1.41421356237309504880 * 1.12837916709551257390 * 0.5);
+    constexpr float kKappa = 0.044715f;
+    const float cube = y * y * y;
+    const float inner = kBeta * (y + kKappa * cube);
+    return 0.5f * y * (1.0f + tanhf(inner));
+  }
+  if (ACT == SILU) return y / (1.0f + expf(-y));
+  return y;
+}
+
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+// vector i of a flat array, as one 16 B access where V elements are 16 B
+template <typename T, int V>
+__device__ __forceinline__ Pack<T, V> load(const T* a, unsigned i) {
+  Pack<T, V> p;
+  if constexpr (sizeof(p) == 16) {
+    *reinterpret_cast<uint4*>(&p) = reinterpret_cast<const uint4*>(a)[i];
+  } else {
+    p = reinterpret_cast<const Pack<T, V>*>(a)[i];
+  }
+  return p;
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store(T* a, unsigned i, const Pack<T, V>& p) {
+  if constexpr (sizeof(p) == 16) {
+    reinterpret_cast<uint4*>(a)[i] = *reinterpret_cast<const uint4*>(&p);
+  } else {
+    reinterpret_cast<Pack<T, V>*>(a)[i] = p;
+  }
+}
+
+// the V elements from flat index e on, in place
+template <typename T, int ACT, bool PLANAR, int V>
+__device__ __forceinline__ void apply(Pack<T, V>& p, unsigned e, const float* sb, unsigned c,
+                                      unsigned hw) {
+  unsigned ch, r = 0;
+  if (PLANAR) {
+    const unsigned q = e / hw;
+    r = e - q * hw;
+    ch = q % c;
+  } else {
+    ch = e % c;
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float y = round_to<T>(to_f<T>(p.v[j]) + sb[ch]);
+    p.v[j] = from_f<T>(activate<ACT>(y));
+    if (PLANAR) {
+      if (++r == hw) {
+        r = 0;
+        if (++ch == c) ch = 0;
+      }
+    } else if (++ch == c) {
+      ch = 0;
+    }
+  }
+}
+
+template <typename T, int ACT, bool PLANAR, int V>
+__global__ void __launch_bounds__(NT)
+bias_act_kernel(const T* z, const float* __restrict__ bias, T* out, unsigned n, unsigned c,
+                unsigned hw) {
+  extern __shared__ float sb[];
+  using P = Pack<T, V>;
+  const unsigned nvec = n / V;
+  const unsigned first = blockIdx.x * (NT * UNROLL) + threadIdx.x;
+  P p[UNROLL];
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const unsigned i = first + u * NT;
+    if (i < nvec) p[u] = load<T, V>(z, i);
+  }
+  for (unsigned k = threadIdx.x; k < c; k += NT) sb[k] = round_to<T>(__ldg(bias + k));
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const unsigned i = first + u * NT;
+    if (i < nvec) {
+      apply<T, ACT, PLANAR, V>(p[u], i * V, sb, c, hw);
+      store<T, V>(out, i, p[u]);
+    }
+  }
+  if (blockIdx.x == gridDim.x - 1) {
+    for (unsigned e = nvec * V + threadIdx.x; e < n; e += NT) {
+      Pack<T, 1> one = load<T, 1>(z, e);
+      apply<T, ACT, PLANAR, 1>(one, e, sb, c, hw);
+      store<T, 1>(out, e, one);
+    }
+  }
+}
+
+template <typename T, int ACT, bool PLANAR, int V>
+cudaError_t launch(const void* z, const float* bias, void* out, unsigned n, unsigned c,
+                   unsigned hw, cudaStream_t stream) {
+  const unsigned per_block = NT * UNROLL;
+  const unsigned blocks = n / V < per_block ? 1 : (n / V + per_block - 1) / per_block;
+  bias_act_kernel<T, ACT, PLANAR, V><<<blocks, NT, c * sizeof(float), stream>>>(
+      static_cast<const T*>(z), bias, static_cast<T*>(out), n, c, hw);
+  return cudaGetLastError();
+}
+
+template <typename T, int ACT>
+cudaError_t launch_layout(const void* z, const float* bias, void* out, bool planar, unsigned n,
+                          unsigned c, unsigned hw, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  return planar ? launch<T, ACT, true, V>(z, bias, out, n, c, hw, stream)
+                : launch<T, ACT, false, V>(z, bias, out, n, c, hw, stream);
+}
+
+template <typename T>
+cudaError_t launch_act(int act, const void* z, const float* bias, void* out, bool planar,
+                       unsigned n, unsigned c, unsigned hw, cudaStream_t stream) {
+  switch (act) {
+    case NONE: return launch_layout<T, NONE>(z, bias, out, planar, n, c, hw, stream);
+    case RELU: return launch_layout<T, RELU>(z, bias, out, planar, n, c, hw, stream);
+    case LEAKY_RELU: return launch_layout<T, LEAKY_RELU>(z, bias, out, planar, n, c, hw, stream);
+    case ELU: return launch_layout<T, ELU>(z, bias, out, planar, n, c, hw, stream);
+    case GELU: return launch_layout<T, GELU>(z, bias, out, planar, n, c, hw, stream);
+    case SILU: return launch_layout<T, SILU>(z, bias, out, planar, n, c, hw, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Launches on `stream` and returns cudaGetLastError() after the launch
+// (0 = launched). z and out: n elements of a dense (N, C, H, W) tensor,
+// channels-last (planar 0) or contiguous NCHW (planar 1, hw = H*W); out may
+// be z. dtype 0 is fp32, 1 bf16; act as the enum above; bias c fp32 values.
+// The caller checks shapes, strides and devices; n outside 1..2**31-1, c
+// outside 1..12288, hw < 1, z or out not 16 B aligned, or an unknown dtype
+// or act return cudaErrorInvalidValue without launching.
+extern "C" int bias_act(const void* z, const float* bias, void* out, int dtype, int act,
+                        int planar, long long n, int c, long long hw, void* stream) {
+  if (n < 1 || n > 0x7fffffffLL || c < 1 || c > MAX_C || hw < 1 || hw > n ||
+      reinterpret_cast<uintptr_t>(z) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned un = static_cast<unsigned>(n), uc = static_cast<unsigned>(c),
+                 uhw = static_cast<unsigned>(hw);
+  if (dtype == 0) {
+    return static_cast<int>(launch_act<float>(act, z, bias, out, planar, un, uc, uhw, st));
+  }
+  if (dtype == 1) {
+    return static_cast<int>(
+        launch_act<__nv_bfloat16>(act, z, bias, out, planar, un, uc, uhw, st));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

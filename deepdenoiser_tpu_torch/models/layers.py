@@ -31,29 +31,15 @@ from __future__ import annotations
 import dataclasses
 import math
 from fractions import Fraction
-from typing import Callable, Optional, Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deepdenoiser_tpu_torch.ops import bias_act
+
 Tensor = torch.Tensor
-
-ACTIVATIONS: dict[str, Callable[[Tensor], Tensor]] = {
-    "relu": F.relu,
-    "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.2),
-    "elu": F.elu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # flax nn.gelu default
-    "silu": F.silu,
-    "none": lambda x: x,
-}
-
-
-def activation(name: str) -> Callable[[Tensor], Tensor]:
-    try:
-        return ACTIVATIONS[name]
-    except KeyError as e:
-        raise KeyError(f"unknown activation {name!r}; known: {sorted(ACTIVATIONS)}") from e
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,7 +112,9 @@ def _same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
 
 class ConvBlock(nn.Module):
     """kxk conv + bias + activation. `x` may be a sequence of tensors,
-    taken as their channel concatenation in that order."""
+    taken as their channel concatenation in that order. The conv runs
+    without its bias; ops/bias_act.py adds it and applies the activation in
+    one pass."""
 
     def __init__(
         self,
@@ -138,8 +126,9 @@ class ConvBlock(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        self.kernel, self.stride, self.dtype = kernel, stride, dtype
-        self.act = activation(act)
+        if act not in bias_act.ACT_CODES:
+            raise KeyError(f"unknown activation {act!r}; known: {sorted(bias_act.ACT_CODES)}")
+        self.kernel, self.stride, self.dtype, self.act = kernel, stride, dtype, act
         # Flax scope name, so release weights map by path (weights_io.py).
         self.Conv_0 = nn.Conv2d(in_channels, features, kernel)
 
@@ -154,14 +143,8 @@ class ConvBlock(nn.Module):
             (t, b), (l, r) = (_same_pads(x.shape[2], k, s), _same_pads(x.shape[3], k, s))
             x = F.pad(x, (l, r, t, b)).contiguous(memory_format=torch.channels_last)
             padding = 0
-        y = F.conv2d(
-            x,
-            self.Conv_0.weight.to(self.dtype),
-            self.Conv_0.bias.to(self.dtype),
-            stride=s,
-            padding=padding,
-        )
-        return self.act(y)
+        y = F.conv2d(x, self.Conv_0.weight.to(self.dtype), stride=s, padding=padding)
+        return bias_act.bias_act(y, self.Conv_0.bias, self.act)
 
 
 class ConvStack(nn.Module):

@@ -44,6 +44,7 @@ from torch import nn
 from deepdenoiser_tpu_torch import tracing
 from deepdenoiser_tpu_torch.models import layers
 from deepdenoiser_tpu_torch.models.layers import RFState
+from deepdenoiser_tpu_torch.ops import bias_act
 
 Tensor = torch.Tensor
 
@@ -220,7 +221,8 @@ class Tiramisu(nn.Module):
             with tracing.span("dense"):
                 block = getattr(self, f"DenseBlock_{spec.depth + 1 + level}")
                 x = torch.cat(_counted((x, block(x))), dim=1)
-        out = F.conv2d(x, self.Conv_0.weight.to(self.dtype), self.Conv_0.bias.to(self.dtype))
+        out = F.conv2d(x, self.Conv_0.weight.to(self.dtype))
+        out = bias_act.bias_act(out, self.Conv_0.bias, "none")
         out = out.permute(0, 2, 3, 1)
         if spec.stem_stride == 2:
             out = layers.depth_to_space(out, 2)

@@ -24,6 +24,7 @@ from torch.utils import checkpoint
 
 from deepdenoiser_tpu_torch.models import layers
 from deepdenoiser_tpu_torch.models.layers import RFState
+from deepdenoiser_tpu_torch.ops import bias_act
 
 Tensor = torch.Tensor
 
@@ -124,7 +125,8 @@ class UNet(nn.Module):
         for i, level in enumerate(range(spec.depth - 1, -1, -1)):
             x = getattr(self, f"UpSample_{i}")(x)
             x = self._stack(spec.depth + 1 + i, (x, skips[level]))
-        out = F.conv2d(x, self.Conv_0.weight.to(self.dtype), self.Conv_0.bias.to(self.dtype))
+        out = F.conv2d(x, self.Conv_0.weight.to(self.dtype))
+        out = bias_act.bias_act(out, self.Conv_0.bias, "none")
         out = out.permute(0, 2, 3, 1)
         if spec.stem_stride == 2:
             out = layers.depth_to_space(out, 2)

@@ -10,18 +10,20 @@ file imports torch and the port only, so it runs where JAX is not installed:
 """
 
 import dataclasses
+import functools
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from deepdenoiser_tpu_torch import config, transforms, weights_io
 from deepdenoiser_tpu_torch.data import mc_tracer, synthetic, synthetic_device
 from deepdenoiser_tpu_torch.data.draws import seeded
 from deepdenoiser_tpu_torch.inference import pipeline
-from deepdenoiser_tpu_torch.models import kpn
-from deepdenoiser_tpu_torch.ops import fused_ingest, kpn_apply, kpn_softmax
+from deepdenoiser_tpu_torch.models import factory, kpn, layers
+from deepdenoiser_tpu_torch.ops import bias_act, fused_ingest, kpn_apply, kpn_softmax
 
 import torch_flips  # noqa: E402  (tests/, on the path of every test module)
 
@@ -878,3 +880,254 @@ def test_roofline_of_a_kpn_hq_frame_on_the_card(cuda, capsys):
     assert 0 < rep["mfu"] <= 1 and 0 < rep["hbm_utilization"] <= 1.05
     assert rep["device"] == torch.cuda.get_device_name(0) and rep["weights"] == "release"
     assert kpn_apply.launches % 8 == 0 and kpn_apply.launches > 0
+
+
+# --------------------------------------------------------------------------
+# the conv epilogue: bias and activation in one pass
+# --------------------------------------------------------------------------
+
+PLANE = (1144, 1984)  # the 1080p frame cells' network plane (border 32)
+EPILOGUE_PRESETS = {"kpn-hq": 21, "flagship-max": 21, "tiramisu-lt1": 33}
+EXACT_ACTS = ("leaky_relu", "relu", "none")
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_output_shapes(preset: str) -> tuple:
+    """The distinct (N,C,H,W) conv outputs of the preset's network over the
+    1080p plane (group mode: four groups a batch), read off one forward on
+    the card at random weights."""
+    mcfg = config.validate_channels(config.PRESETS[preset]).model
+    model = factory.init_model(mcfg, torch.Generator().manual_seed(0)).to("cuda")
+    n = 4 if mcfg.out_channels == 6 else 1
+    x = torch.rand((n, *PLANE, mcfg.in_channels), device="cuda")
+    shapes = []
+    op = bias_act.bias_act
+
+    def seen(z, b, act):
+        shapes.append(tuple(z.shape))
+        return op(z, b, act)
+
+    bias_act.bias_act = seen
+    try:
+        with torch.inference_mode():
+            model(x)
+        torch.cuda.synchronize()
+    finally:
+        bias_act.bias_act = op
+    assert len(shapes) == EPILOGUE_PRESETS[preset]
+    return tuple(sorted(set(shapes)))
+
+
+def _ulps(got, want) -> int:
+    """The largest distance in units in the last place between two bf16 or
+    fp32 tensors (the bit patterns on one monotonic integer line)."""
+    itype = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[got.dtype]
+    bits = [t.contiguous().view(itype).long() for t in (got, want)]
+    top = 1 << (8 * got.element_size() - 1)
+    keys = [torch.where(b >= 0, b, -(b + top)) for b in bits]
+    return int((keys[0] - keys[1]).abs().max())
+
+
+def _epilogue_matches(z, b, act):
+    """The kernel in place on a copy of z against the plain version: equal
+    for leaky_relu, relu and none; within 1 ulp for elu, gelu and silu,
+    whose expm1f, tanhf and expf may round otherwise than PyTorch's build
+    (FMA contraction, the order of the operations). The result is the
+    copy's storage."""
+    out = z.clone()
+    ptr = out.data_ptr()
+    got = bias_act.bias_act_cuda(out, b, act, out)
+    want = bias_act.bias_act_plain(z, b, act)
+    torch.cuda.synchronize()
+    assert got is out and got.data_ptr() == ptr and got.stride() == z.stride()
+    if act in EXACT_ACTS:
+        assert torch.equal(got, want), act
+    else:
+        assert _ulps(got, want) <= 1, act
+
+
+@pytest.mark.parametrize("act", sorted(bias_act.ACTIVATIONS))
+@pytest.mark.parametrize("preset", list(EPILOGUE_PRESETS))
+def test_bias_act_kernel_matches_plain_version_at_every_backbone_shape(cuda, preset, act):
+    """Every conv output shape of the three frame cells' networks at the
+    1080p plane, bf16, channels-last as the path lays them out."""
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    shapes = _conv_output_shapes(preset)
+    bias_act.reset_launches()
+    for shape in shapes:
+        z = (3 * torch.randn(shape, generator=gen, device=cuda)).to(torch.bfloat16)
+        z = z.contiguous(memory_format=torch.channels_last)
+        b = torch.randn((shape[1],), generator=gen, device=cuda)
+        _epilogue_matches(z, b, act)
+        del z
+    assert bias_act.launches == len(shapes)
+
+
+@pytest.mark.parametrize("act", sorted(bias_act.ACTIVATIONS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape,layout", [
+    ((2, 50, 37, 53), "channels_last"),   # 50 channels: vectors straddle pixels
+    ((2, 50, 37, 53), "nchw"),
+    ((3, 16, 5, 7), "nchw"),              # H*W = 35: vectors straddle channels
+    ((1, 7, 3, 3), "channels_last"),      # 63 elements: under one vector a thread
+    ((1, 3, 1, 1), "nchw"),
+], ids=["c50-nhwc", "c50-nchw", "hw35-nchw", "ragged", "tiny"])
+def test_bias_act_kernel_on_layouts_dtypes_and_ragged_tensors(cuda, shape, layout, dtype, act):
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    n, c, h, w = shape
+    z = (3 * torch.randn(shape, generator=gen, device=cuda)).to(dtype)
+    if layout == "channels_last":
+        z = z.contiguous(memory_format=torch.channels_last)
+    b = torch.randn((c,), generator=gen, device=cuda)
+    _epilogue_matches(z, b, act)
+    if dtype == torch.bfloat16:  # a bias already in the working dtype
+        _epilogue_matches(z, b.to(dtype), act)
+
+
+@pytest.mark.parametrize("entry", ["bias_act", "bias_act_cuda"])
+def test_bias_act_refuses_a_misaligned_tensor_on_the_card(cuda, entry):
+    flat = torch.randn((1 + 2 * 64 * 20 * 36,), device=cuda).to(torch.bfloat16)
+    z = flat[1:].view(2, 64, 20, 36)
+    b = torch.randn((64,), device=cuda)
+    bias_act.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if entry == "bias_act":
+            bias_act.bias_act(z, b, "leaky_relu")
+        else:
+            bias_act.bias_act_cuda(z, b, "leaky_relu", z)
+    assert bias_act.launches == 0
+
+
+def test_bias_act_writes_in_place_without_grad_and_anew_under_it(cuda):
+    z = torch.randn((1, 64, 40, 72), device=cuda).to(torch.bfloat16)
+    z = z.contiguous(memory_format=torch.channels_last)
+    b = torch.randn((64,), device=cuda, requires_grad=True)
+    want = bias_act.bias_act_plain(z, b.detach(), "leaky_relu")
+    bias_act.reset_launches()
+    with torch.no_grad():
+        same = z.clone()
+        assert bias_act.bias_act(same, b, "leaky_relu") is same
+    out = bias_act.bias_act(z, b, "leaky_relu")
+    torch.cuda.synchronize()
+    assert out.data_ptr() != z.data_ptr() and out.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(same, want) and torch.equal(out, want)
+    assert bias_act.launches == 2
+
+
+def _frame_1080p():
+    """A 1080p frame on the host: the Fourier family at 270x480, each pixel
+    repeated 4x4."""
+    noisy = synthetic.add_mc_noise(synthetic.generate_clean_passes(270, 480, seed=5), spp=4,
+                                   seed=6)
+    return {k: torch.from_numpy(np.repeat(np.repeat(v, 4, axis=0), 4, axis=1))
+            for k, v in noisy.items()}
+
+
+def _plain_epilogue(z, b, act):
+    return bias_act.bias_act_plain(z, b, act)
+
+
+def test_kpn_hq_1080p_frame_equals_the_plain_epilogue_bit_for_bit(cuda, monkeypatch):
+    """The release kpn-hq frame denoiser (bf16) at 1080p: 21 launches a
+    frame, and every output pass equal to the same frame with the plain
+    chain in the kernel's place."""
+    cfg = config.validate_channels(config.PRESETS["kpn-hq"])
+    params = weights_io.load_release_params(REPO / "weights" / "kpn_hq_ema_f16.npz")
+    frame = _frame_1080p()
+    den, _ = pipeline.make_joint_frame_denoiser(cfg.model, cfg.infer, 1080, 1920, params)
+    bias_act.reset_launches()
+    got = den(frame)
+    torch.cuda.synchronize()
+    assert bias_act.launches == 21
+    monkeypatch.setattr(bias_act, "bias_act", _plain_epilogue)
+    want = den(frame)
+    assert bias_act.launches == 21
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("preset,weights", [("kpn-hq", "kpn_hq_ema_f16.npz"),
+                                            ("tiramisu-lt1", "tiramisu_lt1_ema_f16.npz")])
+def test_frame_denoisers_launch_one_epilogue_a_conv(cuda, preset, weights):
+    cfg = config.validate_channels(config.PRESETS[preset])
+    params = weights_io.load_release_params(REPO / "weights" / weights)
+    h, w = 64, 96
+    noisy = synthetic.add_mc_noise(synthetic.generate_clean_passes(h, w, seed=5), spp=4, seed=6)
+    frame = {k: torch.from_numpy(v) for k, v in noisy.items()}
+    den, _ = pipeline.make_joint_frame_denoiser(cfg.model, cfg.infer, h, w, params)
+    bias_act.reset_launches()
+    for _ in range(2):
+        den(frame)
+    torch.cuda.synchronize()
+    assert bias_act.launches == 2 * EPILOGUE_PRESETS[preset]
+
+
+def test_train_step_with_the_kernel_equals_the_plain_epilogue(cuda, monkeypatch):
+    """One make_train_step step of a small joint KPN in bf16 (cuDNN's
+    deterministic algorithms): the loss, the gradient norm and every
+    parameter after the update equal those of the same step with the plain
+    chain in the kernel's place."""
+    from deepdenoiser_tpu_torch.models.factory import ModelConfig
+    from deepdenoiser_tpu_torch.training import train as train_lib
+
+    mcfg = ModelConfig(backbone="unet", in_channels=41, out_channels=24, base_width=16, depth=2,
+                       kernel_prediction=True, kpn_size=5, kpn_slots=8, kpn_logit_norm=True,
+                       act="leaky_relu", compute_dtype="bfloat16")
+    tcfg = config.TrainConfig(learning_rate=1e-3, warmup_steps=0, schedule="constant")
+    gen = torch.Generator().manual_seed(3)
+    x = torch.rand((4, 64, 64, 41), generator=gen)
+    sig = torch.cat([x[..., 9 * g : 9 * g + 6] for g in range(4)], dim=-1)
+    batch = {k: v.to(cuda) for k, v in
+             {"x": x, "y": sig + 0.05 * torch.randn(sig.shape, generator=gen)}.items()}
+    step = train_lib.make_train_step(mcfg, tcfg)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for plain in (False, True):
+            if plain:
+                monkeypatch.setattr(bias_act, "bias_act", _plain_epilogue)
+            state = train_lib.create_state(mcfg, tcfg, seed=0)
+            bias_act.reset_launches()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            runs.append((bias_act.launches, metrics, state.params))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    (launched, got_m, got_p), (none, want_m, want_p) = runs
+    assert launched == 15 and none == 0  # 14 ConvBlocks and the head, forward only
+    for k in ("loss", "grad_norm"):
+        assert torch.equal(got_m[k], want_m[k]), k
+    for name, p in want_p.items():
+        assert torch.equal(got_p[name], p), name
+
+
+@pytest.mark.parametrize("cin,cout,kernel,stride,act", [
+    (41, 64, 3, 1, "leaky_relu"),   # kpn-hq's first conv
+    (64, 128, 3, 2, "leaky_relu"),  # its first downsample
+    (64, 200, 1, 1, "none"),        # its 1x1 head
+    (48, 16, 3, 1, "leaky_relu"),   # a tiramisu dense layer
+], ids=["3x3", "3x3-s2", "1x1-head", "3x3-c16"])
+def test_conv_epilogue_equals_the_conv_with_its_bias_bit_for_bit(cuda, cin, cout, kernel, stride,
+                                                               act):
+    """The bias-less conv and the kernel against F.conv2d with the bias, as
+    the port ran it before the kernel (PyTorch adds the bias after cuDNN's
+    conv), bf16 channels-last at the 1080p plane: the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    x = torch.randn((1, cin, *PLANE), generator=gen, device=cuda).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    block = layers.ConvBlock(cin, cout, kernel, stride, act=act, dtype=torch.bfloat16).to(cuda)
+    conv = block.Conv_0
+    with torch.no_grad():
+        conv.bias.normal_(generator=gen)
+        w, b = conv.weight.to(torch.bfloat16), conv.bias.to(torch.bfloat16)
+        inp, kw = x, dict(padding=kernel // 2)
+        if stride == 2:  # XLA's SAME pads an even input (0, 1)
+            inp = F.pad(x, (0, 1, 0, 1)).contiguous(memory_format=torch.channels_last)
+            kw = dict(stride=2)
+        want = bias_act.ACTIVATIONS[act](F.conv2d(inp, w, b, **kw))
+        got = block(x)
+        op = bias_act.bias_act(F.conv2d(inp, w, **kw), conv.bias, act)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(op, want)

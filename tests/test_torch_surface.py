@@ -52,6 +52,7 @@ RENAMED: Dict[str, str] = {
     "tools/eval_zoo.py::ROOT": f"{PORT_PKG}/tools/pretrain_flagship.py::REPO_ROOT",
     "tools/eval_zoo.py::--cpu": f"{PORT_PKG}/tools/eval_zoo.py::--device",
     "tools/bench_input_pipeline.py::--cpu": f"{PORT_PKG}/tools/bench_input_pipeline.py::--device",
+    f"{JAX_PKG}/models/layers.py::ACTIVATIONS": f"{PORT_PKG}/ops/bias_act.py::ACTIVATIONS",
 }
 
 NOT_PORTED: Dict[str, str] = {
@@ -72,6 +73,9 @@ NOT_PORTED: Dict[str, str] = {
     "bench.py::WEDGED_H": _WEDGED,
     "bench.py::WEDGED_W": _WEDGED,
     f"{JAX_PKG}/models/layers.py::Dtype": "a Flax dtype alias; the port passes torch.dtype",
+    f"{JAX_PKG}/models/layers.py::activation": "the port applies a conv's activation by name "
+                                               "in ops/bias_act.py with its bias; ConvBlock "
+                                               "checks the name",
     **{f"{JAX_PKG}/{m}::Array": _ARRAY_ALIAS for m in (
         "data/loader.py", "data/mc_tracer.py", "data/synthetic_jax.py", "inference/pipeline.py",
         "inference/sequence.py", "inference/tiled.py", "models/factory.py", "models/kpn.py",
