@@ -24,9 +24,9 @@
 // model's 24-channel signal (12 B at a 96 B pixel stride), or of x[..., :6]
 // of group mode's 14-channel input (12 B at a 56 B stride). Its 12 B lie
 // in one 32 B sector of the pixel, two for joint slots 2 and 5, and the
-// card fetches such scattered reads as 64 B blocks (chip_smoke.py phase
-// 16's stride probe): 32-64 + 100 + 12 = 144-176 B a pixel moved, 1.16-1.42x
-// the useful bytes. chip_smoke.py phase 3 prints both counts at each shape.
+// card fetches such scattered reads as 64 B blocks (the stride timings in
+// csrc/kpn_apply_bwd.cu): 32-64 + 100 + 12 = 144-176 B a pixel moved,
+// 1.16-1.42x the useful bytes.
 //
 // The design, against that bound:
 //   - A block runs 128 threads (4 warps) over a tile 32 pixels wide (BW:

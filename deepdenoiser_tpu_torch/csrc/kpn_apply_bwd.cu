@@ -21,11 +21,11 @@
 // torch.cat of the four signal runs) and g the same channels of the head
 // output's gradient, 12 B read at a 96 B pixel stride. That is one 32 B
 // sector of each pixel (two for slots 2 and 5), and the card fetches such
-// scattered reads as 64 B blocks: the stride probe of chip_smoke.py's
-// phase 16 times d_w at slot 0 of 8-, 16- and 24-channel stacks, and the
-// 16-channel one (the 8-channel one's 32 B sectors, but a 64 B block a
-// pixel instead of half of one) reads a third slower than the 8-channel
-// one, near the 24-channel one (NVIDIA H100 80GB HBM3, 700 W). So d_w
+// scattered reads as 64 B blocks: timed at slot 0 of 8-, 16- and
+// 24-channel stacks, d_w over the 16-channel one (the 8-channel one's 32 B
+// sectors, but a 64 B block a pixel instead of half of one) reads a third
+// slower than over the 8-channel one, near the 24-channel one (NVIDIA H100
+// 80GB HBM3, 700 W). So d_w
 // moves 64 + 64 + 100 = 228 B a pixel at slot 0 (33.6 MB, 10.0 us at
 // 3.35 TB/s at the training batch (16, 96, 96)) and 292 B at slots 2 and
 // 5; d_noisy 64 + 100 + 12 = 176 B. No per-slot kernel can move less.
@@ -52,8 +52,8 @@
 // each end): no block barrier after the staging, so one warp's stores
 // overlap the others' arithmetic. Held to one block barrier before its
 // stores, the same d_w took 15.4 us at the training batch's slot 0
-// against 12.7 for the planar kernel it replaces (probe_k1_bwd.py,
-// NVIDIA H100 80GB HBM3, 700 W).
+// against 12.7 for the planar kernel it replaces (NVIDIA H100 80GB HBM3,
+// 700 W).
 //
 //   kpn_apply_bwd_weights_f32 (d_w). A block of 128 threads owns a 32x4
 //     tile. It stages the tile's halo'd noisy window and its g values (4 B
@@ -85,7 +85,8 @@
 //     10 blocks an SM) measured slower still.
 //
 // kpn_apply_bwd_resident_blocks reports each kernel's resident blocks per
-// SM (the occupancy API); chip_smoke.py prints them beside the times.
+// SM (the occupancy API); tests/test_torch_gpu.py holds the training batch
+// to one wave with it.
 
 #include <cuda_runtime.h>
 

@@ -33,7 +33,7 @@ free, and noisy realizations reuse synthetic.add_mc_noise so the NOISE
 model is identical across families — holdout deltas isolate the SIGNAL
 family.
 
-Eval-only: used by chip_smoke.py and the tests; never by any training
+Eval-only: used by the tools and the tests; never by any training
 path.
 """
 

@@ -27,7 +27,7 @@ C19/N5): the recomposition identity holds exactly; aux buffers are
 noise-free. Reuse synthetic.add_mc_noise for noisy realizations — the
 NOISE model stays identical so holdout deltas isolate the SIGNAL family.
 
-Used by chip_smoke.py and the tests. This family is eval-only: nothing
+Used by the tools and the tests. This family is eval-only: nothing
 here is imported by any training path.
 """
 

@@ -122,16 +122,6 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     return targets
 
 
-def ptxas_report(name: str) -> str:
-    """The ptxas lines (registers, shared memory, spills) of a built source."""
-    log = library_path(name).with_suffix(".log")
-    if not log.exists():
-        return ""
-    return "\n".join(
-        ln for ln in log.read_text().splitlines() if "ptxas" in ln or "spill" in ln
-    )
-
-
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, building it first if needed."""
     lib = _libs.get(name)

@@ -102,7 +102,7 @@ def _group_kernel():
 
 
 # --------------------------------------------------------------------------
-# plain versions (CPU tensors; the card's yardstick in chip_smoke.py)
+# plain versions (CPU tensors; the card's yardstick in tests/test_torch_gpu.py)
 # --------------------------------------------------------------------------
 
 

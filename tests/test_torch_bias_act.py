@@ -7,7 +7,7 @@ a bias, every conv's output goes through the op once, and the CPU launches
 nothing; the wrapper's argument checks.
 
 The kernel itself is held to the plain version on the card
-(tests/test_torch_gpu.py, chip_smoke.py).
+(tests/test_torch_gpu.py).
 """
 
 import itertools

@@ -7,8 +7,8 @@ port's own per-pass normalize / demodulate, on the same numpy inputs. Inputs
 reach every clamp: negative radiance, albedo 0, normals beyond [-1, 1], alpha
 outside [0, 1], negative depth. Tolerances: atol 1e-6 (log1p, division),
 1e-7 for the pure clamps. The CUDA kernels themselves are held to the plain
-versions on the card by tests/test_torch_gpu.py and chip_smoke.py; here the
-launcher's Python side (views, strides, refusals, argument lists) is checked.
+versions on the card by tests/test_torch_gpu.py; here the launcher's Python
+side (views, strides, refusals, argument lists) is checked.
 """
 
 import re

@@ -1,16 +1,25 @@
-"""The port on the card: every CUDA kernel against its plain PyTorch version,
-and the joint- and group-mode frame denoise through the kernels.
+"""The port on the card, the one place it is checked there: every CUDA kernel
+against its plain PyTorch version; every entry point a user calls (the frame
+factories of each mode and preset, `deepdenoiser-torch` and its commands,
+training, the tracer, the release tooling and the tools), each kernel's
+launches counted on every path, bf16 frames held to fp32. Kernel times are
+the benchmark's (h100_bench/), not these tests'.
 
-Every test here carries the `gpu` marker and skips without a CUDA card. The
-file imports torch and the port only, so it runs where JAX is not installed:
+Every test here carries the `gpu` marker and skips without a CUDA card
+before doing any work. The file imports torch and the port only, so it runs
+where JAX is not installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
 
 (`--noconftest`: tests/conftest.py configures JAX for the CPU suite.)
 """
 
+import contextlib
 import dataclasses
 import functools
+import itertools
+import json
+import math
 from pathlib import Path
 
 import numpy as np
@@ -18,12 +27,12 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from deepdenoiser_tpu_torch import config, transforms, weights_io
-from deepdenoiser_tpu_torch.data import mc_tracer, synthetic, synthetic_device
+from deepdenoiser_tpu_torch import config, passes, transforms, weights_io
+from deepdenoiser_tpu_torch.data import exr, mc_tracer, synthetic, synthetic_device
 from deepdenoiser_tpu_torch.data.draws import seeded
 from deepdenoiser_tpu_torch.inference import pipeline
 from deepdenoiser_tpu_torch.models import factory, kpn, layers
-from deepdenoiser_tpu_torch.ops import bias_act, fused_ingest, kpn_apply, kpn_softmax
+from deepdenoiser_tpu_torch.ops import bias_act, fused_ingest, kpn_apply, kpn_softmax, metrics
 
 import torch_flips  # noqa: E402  (tests/, on the path of every test module)
 
@@ -31,11 +40,26 @@ REPO = Path(__file__).resolve().parents[1]
 pytestmark = pytest.mark.gpu
 
 
-@pytest.fixture
-def cuda():
+def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (python -m pytest tests/test_torch_gpu.py -m gpu)")
+
+
+@pytest.fixture
+def cuda():
+    _need_card()
     return torch.device("cuda")
+
+
+@contextlib.contextmanager
+def _full_fp32():
+    """Full-precision fp32 convs and matmuls (TF32 off) inside the block."""
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _within(got, want):
@@ -148,6 +172,19 @@ def test_kpn_kernel_takes_both_tile_heights(cuda, shape, rows):
     _head_layout_matches(noisy, weights, 5)
 
 
+@pytest.mark.parametrize("lead,stack", [((1, 1144, 1984), 24), ((4, 1144, 1984), 14),
+                                        ((8, 656, 656), 24)],
+                         ids=["kpn-hq-1080p", "flagship-max-1080p", "kpn-hq-4k-tiles"])
+def test_kpn_kernel_at_the_frame_cells_shapes(cuda, lead, stack):
+    """Slot 1 of each frame cell's signal at its network call's batch: the
+    joint 1080p plane, the group frame's four groups, a chunk of eight 4K
+    tiles."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    noisy = torch.rand((*lead, stack), generator=g, device=cuda)[..., 3:6]
+    weights = torch.softmax(torch.randn((*lead, 25), generator=g, device=cuda), -1)
+    _head_layout_matches(noisy, weights, 5)
+
+
 def test_kpn_kernel_fills_the_card_at_the_training_batch(cuda):
     """At (16,96,96,3), k=5, the forward's 1152 blocks of 32x4 pixels are
     all resident at once: no partial second wave."""
@@ -173,16 +210,12 @@ def test_kpn_hq_frame_on_the_card_matches_the_cpu_port(cuda):
     icfg = dataclasses.replace(cfg.infer, compute_dtype="float32")
     params = weights_io.load_release_params(REPO / "weights" / "kpn_hq_ema_f16.npz")
     frame = {k: torch.from_numpy(v) for k, v in noisy.items()}
-    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with _full_fp32():
         den_gpu, _ = pipeline.make_joint_frame_denoiser(cfg.model, icfg, h, w, params)
         kpn_apply.reset_launches()
         got = den_gpu(frame)["combined"]
         torch.cuda.synchronize()
         assert kpn_apply.launches == cfg.model.kpn_slots
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
     den_cpu, _ = pipeline.make_joint_frame_denoiser(cfg.model, icfg, h, w, params, device="cpu")
     want = den_cpu(frame)["combined"].numpy()
     err = np.abs(got.cpu().numpy() - want).max()
@@ -193,7 +226,7 @@ def test_kpn_hq_frame_on_the_card_matches_the_cpu_port(cuda):
 # the fused-ingest kernels
 # --------------------------------------------------------------------------
 
-INGEST_SHAPES = [(37, 53), (2, 20, 36), (64, 96), (1, 1)]
+INGEST_SHAPES = [(37, 53), (2, 20, 36), (64, 96), (1, 1), (1080, 1920)]
 
 
 def _ingest_within(got, want):
@@ -280,7 +313,8 @@ def test_group_encode_writes_strided_channel_ranges(cuda, aux, lead):
 
 @pytest.mark.parametrize("aux", [*AUX_SUBSETS, ("alpha", "depth", "normal")], ids=str)
 @pytest.mark.parametrize("n_groups", [1, 2, 3, 4])
-@pytest.mark.parametrize("lead", [(64, 96), (2, 20, 36), (37, 53), (7, 9), (1, 1)], ids=str)
+@pytest.mark.parametrize("lead", [(64, 96), (2, 20, 36), (37, 53), (7, 9), (1, 1), (1080, 1920)],
+                         ids=str)
 def test_group_encode_kernel_matches_plain_version(cuda, lead, n_groups, aux):
     """The whole-pixel launch against the stacked plain encode: frame-sized
     (whole tiles), batched, and ragged shapes whose pixel count is no
@@ -375,9 +409,7 @@ def test_flagship_max_group_frame_on_the_card_matches_the_cpu_port(cuda):
     icfg = dataclasses.replace(cfg.infer, compute_dtype="float32", use_pallas_ingest=True)
     params = weights_io.load_release_params(REPO / "weights" / "kpn_ema_f16.npz")
     frame = {k: torch.from_numpy(np.asarray(v, dtype=np.float32)) for k, v in noisy.items()}
-    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with _full_fp32():
         den_gpu, _ = pipeline.make_group_frame_denoiser(cfg.model, icfg, h, w, params)
         kpn_apply.reset_launches()
         fused_ingest.reset_launches()
@@ -386,8 +418,6 @@ def test_flagship_max_group_frame_on_the_card_matches_the_cpu_port(cuda):
         assert kpn_apply.launches == cfg.model.kpn_slots
         assert fused_ingest.launches == {"radiance": 0, "normal": 0, "depth_alpha": 0,
                                          "depth": 0, "alpha": 0, "group_encode": 1}
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
     den_cpu, _ = pipeline.make_group_frame_denoiser(cfg.model, icfg, h, w, params, device="cpu")
     want = den_cpu(frame)
     assert set(got) == set(want)
@@ -427,9 +457,7 @@ def test_tiled_group_frame_equals_the_whole_frame_on_the_card(cuda, infer_kw, la
     noisy = synthetic.add_mc_noise(synthetic.generate_clean_passes(h, w, seed=5), spp=4, seed=6)
     cfg = config.validate_channels(config.PRESETS["kpn"])
     params = weights_io.load_release_params(REPO / "weights" / "kpn_ema_f16.npz")
-    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with _full_fp32():
         whole, _ = pipeline.make_group_frame_denoiser(
             cfg.model, dataclasses.replace(cfg.infer, compute_dtype="float32"), h, w, params)
         tiled_den, grid = pipeline.make_group_frame_denoiser(
@@ -441,8 +469,6 @@ def test_tiled_group_frame_equals_the_whole_frame_on_the_card(cuda, infer_kw, la
         got = tiled_den(noisy)
         torch.cuda.synchronize()
         assert kpn_apply.launches == launches
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
     assert set(got) == set(want)
     feather = infer_kw.get("stitch") == "feather"
     for name, ref in want.items():
@@ -501,7 +527,10 @@ def test_kpn_autograd_on_the_card_launches_only_the_gradients_asked_for(cuda):
 @pytest.mark.parametrize("lead,k,slots,norm,crop", [
     ((1, 37, 53), 5, 8, True, False), ((4, 20, 36), 5, 2, True, False),
     ((2, 19, 21), 3, 2, True, False), ((3, 9, 7), 3, 1, False, False),
-    ((2, 30, 41), 5, 8, False, True), ((1, 1, 3), 5, 8, True, False)])
+    ((2, 30, 41), 5, 8, False, True), ((1, 1, 3), 5, 8, True, False),
+    # the frame cells' heads: kpn-hq's plane, flagship-max's four groups, a 4K tile batch
+    ((1, 1144, 1984), 5, 8, True, False), ((4, 1144, 1984), 5, 2, True, False),
+    ((8, 656, 656), 5, 8, True, False)])
 def test_kpn_softmax_kernel_matches_plain_version(cuda, lead, k, slots, norm, crop):
     """Every slot view of an (N,H,W,slots·k²) output, ragged pixel counts,
     and a cropped view whose N, H and W strides do not merge."""
@@ -547,6 +576,27 @@ def test_kpn_head_on_the_card_launches_one_softmax_a_slot_and_the_plain_gradient
         grads[str(dev)] = (f.grad.cpu(), head.kernel_temp.grad.cpu())
     for got, want in zip(grads[str(cuda)], grads["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("slots", [8, 2], ids=["kpn-hq", "flagship-max"])
+def test_kpn_head_on_the_card_runs_no_kernel_of_the_plain_chain(cuda, slots):
+    """The heads of kpn-hq and flagship-max: one norm-and-softmax launch a
+    slot, as counted and in the profiler's trace, and none of the softmax
+    or reduction kernels of the plain chain."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    head = kpn.KernelPredictionHead(5, slots, logit_norm=True).to(cuda)
+    feats = 3 * torch.randn((2, 24, 40, slots * 25), generator=gen, device=cuda)
+    signal = torch.rand((2, 24, 40, 3 * slots), generator=gen, device=cuda)
+    kpn_softmax.reset_launches()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        head(feats, signal)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert kpn_softmax.launches == slots
+    assert sum(e.count for e in kernels if "kpn_softmax_kernel" in e.key) == slots
+    assert not [e.key for e in kernels if "softmax_warp" in e.key or "reduce_kernel" in e.key]
 
 
 def _slot_inputs(shape, k, dev, stack, slot, seed=0):
@@ -600,6 +650,8 @@ def test_kpn_backward_kernels_take_every_slot_view(cuda, slot):
     ((1, 13, 41, 2), 3, 4, 1),      # C = 2, ragged
     ((2, 11, 36, 4), 5, None, 0),   # C = 4: W*C a multiple of 4, 16 B rows
     ((1, 11, 33, 4), 3, 8, 1),      # C = 4, ragged
+    ((16, 96, 96, 3), 5, 24, 2),    # the training batch at k = 5, a slot over two sectors
+    ((1, 1144, 1984, 3), 5, 24, 0),  # the joint 1080p plane
 ], ids=str)
 def test_kpn_backward_kernels_on_ragged_narrow_and_strided_frames(cuda, shape, k, stack, slot):
     _backward_matches(*_slot_inputs(shape, k, cuda, stack, slot, seed=slot + 1), k)
@@ -714,9 +766,7 @@ def test_band_parallel_kpn_frame_on_the_card_equals_the_whole_frame(cuda):
     icfg = dataclasses.replace(cfg.infer, compute_dtype="float32", spatial_shard=True)
     params = weights_io.load_release_params(REPO / "weights" / "kpn_hq_ema_f16.npz")
     frame = {k: torch.from_numpy(v) for k, v in noisy.items()}
-    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with _full_fp32():
         banded, _ = pipeline.make_joint_frame_denoiser(
             cfg.model, icfg, h, w, params, mesh=mesh.make_mesh(2, "spatial", devices=["cuda"] * 2))
         whole, _ = pipeline.make_joint_frame_denoiser(cfg.model, icfg, h, w, params)
@@ -725,8 +775,6 @@ def test_band_parallel_kpn_frame_on_the_card_equals_the_whole_frame(cuda):
         torch.cuda.synchronize()
         assert kpn_apply.launches == 2 * cfg.model.kpn_slots
         want = whole(frame)
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
     for k, ref in want.items():
         assert float((got[k] - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), k
 
@@ -753,17 +801,13 @@ def test_two_gloo_ranks_on_the_card_match_the_one_rank_step(cuda, tmp_path):
     res = torch_dp_worker.spawn(torch_dp_worker.train_steps, 2, tmp_path, "cuda",
                                 mkw, tkw, params, batch, 3)
     assert all(launches == (8, 8) for r in res for launches in r["launches"])
-    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with _full_fp32():
         state = train.create_state(m, t, params=weights_io.unflatten(params))
         step = train.make_train_step(m, t)
         for got in res[0]["mets"]:
             state, want = step(state, {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()})
             for k in ("loss", "grad_norm"):
                 assert got[k] == pytest.approx(float(want[k]), rel=1e-5), k
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
     want = torch_dp_worker.flat_state(state)
     for k, v in res[0]["state"].items():
         np.testing.assert_array_equal(res[1]["state"][k], v, err_msg=k)
@@ -887,19 +931,26 @@ def test_roofline_of_a_kpn_hq_frame_on_the_card(cuda, capsys):
 # --------------------------------------------------------------------------
 
 PLANE = (1144, 1984)  # the 1080p frame cells' network plane (border 32)
-EPILOGUE_PRESETS = {"kpn-hq": 21, "flagship-max": 21, "tiramisu-lt1": 33}
+# conv epilogue launches a network call: one a ConvBlock and one for the 1x1
+# head; unet-multiscale runs its base UNet at three scales
+EPILOGUES = {"kpn-hq": 21, "flagship-hq": 21, "flagship": 21, "flagship-mc": 21,
+             "flagship-max": 21, "kpn": 21, "tiramisu-lt1": 33, "tiramisu-fast": 39,
+             "tiramisu": 36, "unet-multiscale": 63, "rgb-small": 10}
+# the frame cells' network calls: (preset, the batch (N, H, W) of one call)
+EPILOGUE_PATHS = {"kpn-hq": ("kpn-hq", (1, *PLANE)), "flagship-max": ("flagship-max", (4, *PLANE)),
+                  "tiramisu-lt1": ("tiramisu-lt1", (1, *PLANE)),
+                  "kpn-hq-4k-tiles": ("kpn-hq", (8, 656, 656))}
 EXACT_ACTS = ("leaky_relu", "relu", "none")
 
 
 @functools.lru_cache(maxsize=None)
-def _conv_output_shapes(preset: str) -> tuple:
-    """The distinct (N,C,H,W) conv outputs of the preset's network over the
-    1080p plane (group mode: four groups a batch), read off one forward on
-    the card at random weights."""
+def _conv_output_shapes(path: str) -> tuple:
+    """The distinct (N,C,H,W) conv outputs of a frame cell's network call
+    (EPILOGUE_PATHS), read off one forward on the card at random weights."""
+    preset, lead = EPILOGUE_PATHS[path]
     mcfg = config.validate_channels(config.PRESETS[preset]).model
     model = factory.init_model(mcfg, torch.Generator().manual_seed(0)).to("cuda")
-    n = 4 if mcfg.out_channels == 6 else 1
-    x = torch.rand((n, *PLANE, mcfg.in_channels), device="cuda")
+    x = torch.rand((*lead, mcfg.in_channels), device="cuda")
     shapes = []
     op = bias_act.bias_act
 
@@ -914,7 +965,7 @@ def _conv_output_shapes(preset: str) -> tuple:
         torch.cuda.synchronize()
     finally:
         bias_act.bias_act = op
-    assert len(shapes) == EPILOGUE_PRESETS[preset]
+    assert len(shapes) == EPILOGUES[preset]
     return tuple(sorted(set(shapes)))
 
 
@@ -947,12 +998,13 @@ def _epilogue_matches(z, b, act):
 
 
 @pytest.mark.parametrize("act", sorted(bias_act.ACTIVATIONS))
-@pytest.mark.parametrize("preset", list(EPILOGUE_PRESETS))
-def test_bias_act_kernel_matches_plain_version_at_every_backbone_shape(cuda, preset, act):
-    """Every conv output shape of the three frame cells' networks at the
-    1080p plane, bf16, channels-last as the path lays them out."""
+@pytest.mark.parametrize("path", list(EPILOGUE_PATHS))
+def test_bias_act_kernel_matches_plain_version_at_every_backbone_shape(cuda, path, act):
+    """Every conv output shape of the four frame cells' network calls (the
+    1080p plane, a chunk of eight 4K tiles), bf16, channels-last as the
+    path lays them out."""
     gen = torch.Generator(device=cuda).manual_seed(20)
-    shapes = _conv_output_shapes(preset)
+    shapes = _conv_output_shapes(path)
     bias_act.reset_launches()
     for shape in shapes:
         z = (3 * torch.randn(shape, generator=gen, device=cuda)).to(torch.bfloat16)
@@ -1014,26 +1066,18 @@ def test_bias_act_writes_in_place_without_grad_and_anew_under_it(cuda):
     assert bias_act.launches == 2
 
 
-def _frame_1080p():
-    """A 1080p frame on the host: the Fourier family at 270x480, each pixel
-    repeated 4x4."""
-    noisy = synthetic.add_mc_noise(synthetic.generate_clean_passes(270, 480, seed=5), spp=4,
-                                   seed=6)
-    return {k: torch.from_numpy(np.repeat(np.repeat(v, 4, axis=0), 4, axis=1))
-            for k, v in noisy.items()}
-
-
 def _plain_epilogue(z, b, act):
     return bias_act.bias_act_plain(z, b, act)
 
 
-def test_kpn_hq_1080p_frame_equals_the_plain_epilogue_bit_for_bit(cuda, monkeypatch):
+def test_kpn_hq_1080p_frame_equals_the_plain_epilogue_bit_for_bit(cuda, fourier_1080p,
+                                                                  monkeypatch):
     """The release kpn-hq frame denoiser (bf16) at 1080p: 21 launches a
     frame, and every output pass equal to the same frame with the plain
     chain in the kernel's place."""
     cfg = config.validate_channels(config.PRESETS["kpn-hq"])
     params = weights_io.load_release_params(REPO / "weights" / "kpn_hq_ema_f16.npz")
-    frame = _frame_1080p()
+    frame = fourier_1080p["noisy"]
     den, _ = pipeline.make_joint_frame_denoiser(cfg.model, cfg.infer, 1080, 1920, params)
     bias_act.reset_launches()
     got = den(frame)
@@ -1050,6 +1094,10 @@ def test_kpn_hq_1080p_frame_equals_the_plain_epilogue_bit_for_bit(cuda, monkeypa
 @pytest.mark.parametrize("preset,weights", [("kpn-hq", "kpn_hq_ema_f16.npz"),
                                             ("tiramisu-lt1", "tiramisu_lt1_ema_f16.npz")])
 def test_frame_denoisers_launch_one_epilogue_a_conv(cuda, preset, weights):
+    """Counted by the wrapper, and as bias_act_kernel in the profiler's
+    trace of the second frame."""
+    from torch.profiler import ProfilerActivity, profile
+
     cfg = config.validate_channels(config.PRESETS[preset])
     params = weights_io.load_release_params(REPO / "weights" / weights)
     h, w = 64, 96
@@ -1057,10 +1105,14 @@ def test_frame_denoisers_launch_one_epilogue_a_conv(cuda, preset, weights):
     frame = {k: torch.from_numpy(v) for k, v in noisy.items()}
     den, _ = pipeline.make_joint_frame_denoiser(cfg.model, cfg.infer, h, w, params)
     bias_act.reset_launches()
-    for _ in range(2):
+    den(frame)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         den(frame)
-    torch.cuda.synchronize()
-    assert bias_act.launches == 2 * EPILOGUE_PRESETS[preset]
+        torch.cuda.synchronize()
+    assert bias_act.launches == 2 * EPILOGUES[preset]
+    assert sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "bias_act_kernel" in e.key) == EPILOGUES[preset]
 
 
 def test_train_step_with_the_kernel_equals_the_plain_epilogue(cuda, monkeypatch):
@@ -1131,3 +1183,1024 @@ def test_conv_epilogue_equals_the_conv_with_its_bias_bit_for_bit(cuda, cin, cout
         op = bias_act.bias_act(F.conv2d(inp, w, **kw), conv.bias, act)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(op, want)
+
+
+# --------------------------------------------------------------------------
+# the entry points on the card: frames, the CLI, training, the tools
+# --------------------------------------------------------------------------
+
+FRAME = (1080, 1920)
+GAIN_TOL_DB = 0.05  # a bf16 frame's PSNR gain against the same frame's in fp32
+# the tiramisu presets round the dense stack to bf16 at every concat, which
+# costs more than in the UNets; flagship-mc's output on the traced frame
+# sits ~19 dB over its 4-spp input, where bf16 rounding shows
+WIDE_GAIN_TOL_DB = 0.15
+RELEASE = {"kpn-hq": "kpn_hq_ema_f16.npz", "flagship-hq": "flagship_hq_ema_f16.npz",
+           "flagship": "flagship_ema_f16.npz", "flagship-mc": "flagship_mc_ema_f16.npz",
+           "flagship-max": "kpn_ema_f16.npz", "tiramisu-lt1": "tiramisu_lt1_ema_f16.npz",
+           "tiramisu-fast": "tiramisu_fast_ema_f16.npz", "tiramisu": "tiramisu_ema_f16.npz",
+           "rgb-small": "rgb_small_ema_f16.npz"}
+# the combined-RGB release model
+RGB_SMALL = dict(backbone="unet", in_channels=10, out_channels=3, base_width=32, depth=2,
+                 convs_per_level=1, act="leaky_relu", compute_dtype="bfloat16",
+                 predict_residual=True)
+SEQUENCE_KEYS = {"n_frames", "height", "width", "grid", "latency_ms", "latency_ms_mean",
+                 "latency_ms_median", "fetch_overhead_ms", "psnr", "psnr_mean", "ssim", "ssim_mean"}
+
+
+def _reset_launches():
+    for op in (kpn_apply, kpn_softmax, bias_act, fused_ingest):
+        op.reset_launches()
+
+
+def _expect_launches(times=1, **per):
+    """Each kernel launched `per` times (0 where not named) x `times` since
+    _reset_launches()."""
+    got = {"kpn_apply": kpn_apply.launches, "bwd_weights": kpn_apply.bwd_weights_launches,
+           "bwd_noisy": kpn_apply.bwd_noisy_launches, "kpn_softmax": kpn_softmax.launches,
+           "bias_act": bias_act.launches, **fused_ingest.launches}
+    assert set(per) <= set(got), per
+    assert got == {name: per.get(name, 0) * times for name in got}
+
+
+def _frame_launches(preset, fused=False) -> dict:
+    """A frame's launches through the preset's network: K1 and the softmax
+    once a slot, a conv epilogue a conv, the group encode with the fused
+    ingest."""
+    mcfg = config.PRESETS[preset].model
+    slots = mcfg.kpn_slots if mcfg.kernel_prediction else 0
+    return dict(kpn_apply=slots, kpn_softmax=slots, bias_act=EPILOGUES[preset],
+                group_encode=int(fused))
+
+
+def _release_params(preset):
+    return weights_io.load_release_params(REPO / "weights" / RELEASE[preset])
+
+
+def _seeded_params(mcfg):
+    return weights_io.params_from_state_dict(
+        factory.init_model(mcfg, torch.Generator().manual_seed(0)).state_dict())
+
+
+def _maker(mcfg):
+    """(the frame factory of the model's mode, whether that is group mode)."""
+    group = mcfg.out_channels == 6
+    return (pipeline.make_group_frame_denoiser if group else pipeline.make_joint_frame_denoiser), group
+
+
+def _gain_db(out, noisy, clean) -> float:
+    """The tonemapped PSNR gain of `out` over `noisy` against `clean`."""
+    tm = metrics.tonemap_for_metrics
+    ref = tm(clean)
+    return float(metrics.psnr(tm(out), ref) - metrics.psnr(tm(noisy), ref))
+
+
+def _assert_frames_agree(got, want, tol):
+    """Every pass within tol x max|ref| of the reference frame's."""
+    assert set(got) == set(want)
+    for name, ref in want.items():
+        assert torch.isfinite(got[name]).all(), name
+        rel = float((got[name] - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+        assert rel <= tol, (name, rel)
+
+
+def _on_card(passes_):
+    return {k: torch.as_tensor(v, dtype=torch.float32, device="cuda") for k, v in passes_.items()}
+
+
+@pytest.fixture(scope="module")
+def fourier_1080p():
+    """The Fourier family's 1080p frame (seed 0) at 4 spp (noise seed 1):
+    its passes on the host ("host_clean", "host_noisy") and on the card
+    ("noisy", and "clean", the clean combined)."""
+    _need_card()
+    clean = synthetic.generate_clean_passes(*FRAME, seed=0)
+    noisy = synthetic.add_mc_noise(clean, spp=4, seed=1)
+    return {"host_clean": clean, "host_noisy": noisy, "noisy": _on_card(noisy),
+            "clean": torch.as_tensor(clean["combined"], device="cuda")}
+
+
+@pytest.fixture(scope="module")
+def fourier_dir(fourier_1080p, tmp_path_factory):
+    """The same noisy frame as a directory of EXR passes, as `denoise
+    --frame` reads it."""
+    path = tmp_path_factory.mktemp("frame") / "spp4_seed0"
+    exr.save_frame_dir(path, fourier_1080p["host_noisy"])
+    return path
+
+
+@pytest.fixture(scope="module")
+def traced_1080p():
+    """make_scene(0) traced on the card at 1080p, the mc family of the
+    headline bench: 4 spp (sample seed 4) against 1024 spp."""
+    _need_card()
+    gt = mc_tracer.generate_clean_passes(*FRAME, seed=0, spp=1024)
+    noisy = mc_tracer.generate_noisy_passes(*FRAME, seed=0, spp=4, sample_seed=4)
+    return {"gt": gt, "noisy": noisy, "clean": gt["combined"]}
+
+
+def test_every_source_builds_on_the_card(cuda):
+    """nvcc every csrc/*.cu and the host compiler csrc/exr_pack.cpp, all at
+    once (ops/_build.py)."""
+    from deepdenoiser_tpu_torch.ops import _build
+
+    names = [*_build.sources(), "exr_pack"]
+    paths = _build.build(names)
+    assert sorted(paths) == sorted(names) and all(p.is_file() for p in paths.values())
+
+
+# flagship-hq has no fp32 bar: its bf16 gain reads 0.126 dB under fp32's on
+# this frame, where the UNets' bar is 0.05 dB (ROADMAP.md queue 1)
+QUALITY = [("kpn-hq", "fourier_1080p", GAIN_TOL_DB), ("flagship-hq", "fourier_1080p", None),
+           ("flagship", "fourier_1080p", GAIN_TOL_DB),
+           ("flagship-max", "fourier_1080p", GAIN_TOL_DB),
+           ("tiramisu-lt1", "fourier_1080p", WIDE_GAIN_TOL_DB),
+           ("tiramisu-fast", "fourier_1080p", WIDE_GAIN_TOL_DB),
+           ("tiramisu", "fourier_1080p", WIDE_GAIN_TOL_DB),
+           ("kpn-hq", "traced_1080p", GAIN_TOL_DB), ("flagship-mc", "traced_1080p", WIDE_GAIN_TOL_DB)]
+
+
+@pytest.mark.parametrize("preset,frame,tol", QUALITY,
+                         ids=[f"{p}-{f.split('_')[0]}" for p, f, _ in QUALITY])
+def test_bf16_frame_gains_within_its_bar_of_fp32(cuda, request, preset, frame, tol):
+    """A release model's 1080p frame in bf16 through the frame factory (the
+    group frame with the fused ingest): every kernel's launches, finite
+    passes, a PSNR gain, and with a `tol` within `tol` dB of the same
+    frame's in fp32 with TF32 off, the plain filter apply and the plain
+    encode."""
+    f = request.getfixturevalue(frame)
+    cfg = config.validate_channels(config.PRESETS[preset])
+    params = _release_params(preset)
+    make, group = _maker(cfg.model)
+    icfg = dataclasses.replace(cfg.infer, use_pallas_ingest=group)
+    den, _ = make(cfg.model, icfg, *FRAME, params)
+    _reset_launches()
+    out = den(f["noisy"])
+    torch.cuda.synchronize()
+    _expect_launches(**_frame_launches(preset, fused=group))
+    assert all(torch.isfinite(v).all() for v in out.values())
+    gain = _gain_db(out["combined"], f["noisy"]["combined"], f["clean"])
+    assert gain > 0
+    if tol is None:
+        return
+    with _full_fp32():
+        ref_den, _ = make(cfg.model, dataclasses.replace(icfg, compute_dtype="float32",
+                                                          use_pallas_ingest=False), *FRAME, params)
+        if cfg.model.kernel_prediction:
+            ref_den.model.KernelPredictionHead_0.filter_apply = kpn.apply_per_pixel_kernels
+        ref = ref_den(f["noisy"])["combined"]
+    ref_gain = _gain_db(ref, f["noisy"]["combined"], f["clean"])
+    assert abs(gain - ref_gain) <= tol, (gain, ref_gain)
+
+
+CLI_DENOISE = {"kpn-hq": "joint", "flagship-hq": "joint", "flagship": "joint",
+               "tiramisu-lt1": "joint", "tiramisu-fast": "joint", "tiramisu": "joint",
+               "flagship-max": "group", "rgb-small": "rgb"}
+
+
+@pytest.mark.parametrize("preset", list(CLI_DENOISE))
+def test_cli_denoise_on_the_card(cuda, fourier_1080p, fourier_dir, tmp_path, preset):
+    """`deepdenoiser-torch denoise` on the 1080p frame's EXR directory with
+    the release weights: a joint model by --preset, flagship-max by a
+    --config that turns the fused ingest on, the combined-RGB model by its
+    --config; each kernel's launches, a finite frame and a PSNR gain."""
+    from deepdenoiser_tpu_torch import cli
+
+    mode = CLI_DENOISE[preset]
+    if mode == "joint":
+        source, want = ["--preset", preset], _frame_launches(preset)
+    else:
+        if mode == "group":
+            base = config.PRESETS[preset]
+            exp = dataclasses.replace(base, infer=dataclasses.replace(base.infer,
+                                                                      use_pallas_ingest=True))
+            want = _frame_launches(preset, fused=True)
+        else:
+            exp = config.ExperimentConfig(name=preset, model=factory.ModelConfig(**RGB_SMALL),
+                                          data=config.DataConfig(mode="rgb"))
+            want = {"bias_act": EPILOGUES[preset]}
+        path = tmp_path / "config.json"
+        config.save(exp, path)
+        assert config.validate_channels(config.load(path)).infer.use_pallas_ingest == (mode == "group")
+        source = ["--config", str(path)]
+    _reset_launches()
+    assert cli.main(["denoise", *source, "--weights", str(REPO / "weights" / RELEASE[preset]),
+                     "--frame", str(fourier_dir), "--out", str(tmp_path / "out.exr"),
+                     "--mode", mode]) == 0
+    torch.cuda.synchronize()
+    _expect_launches(**want)
+    out = torch.from_numpy(exr.read_exr(tmp_path / "out.exr")).to(cuda)
+    assert out.shape == (*FRAME, 3) and torch.isfinite(out).all()
+    assert _gain_db(out, fourier_1080p["noisy"]["combined"], fourier_1080p["clean"]) > 0
+
+
+def test_rgb_frame_and_denoise_crop_on_the_card(cuda, fourier_1080p):
+    """The combined-RGB release model through its frame factory (10
+    epilogue launches a frame) and as one unpadded crop: both gain."""
+    cfg = config.validate_channels(config.ExperimentConfig(
+        name="rgb-small", model=factory.ModelConfig(**RGB_SMALL), data=config.DataConfig(mode="rgb")))
+    params = _release_params("rgb-small")
+    noisy = fourier_1080p["noisy"]
+    den, _ = pipeline.make_rgb_frame_denoiser(cfg.model, cfg.infer, *FRAME, params)
+    _reset_launches()
+    out = den(noisy)["combined"]
+    torch.cuda.synchronize()
+    _expect_launches(bias_act=EPILOGUES["rgb-small"])
+    crop = pipeline.denoise_crop(cfg.model, params, noisy)
+    for t in (out, crop):
+        assert t.shape == (*FRAME, 3) and torch.isfinite(t).all()
+        assert _gain_db(t, noisy["combined"], fourier_1080p["clean"]) > 0
+
+
+@pytest.mark.parametrize("aux", [("normal", "depth", "alpha"), ("normal", "depth"), ("alpha",)],
+                         ids="+".join)
+def test_group_frame_with_the_fused_ingest_equals_the_plain_encode(cuda, fourier_1080p, aux):
+    """The 1080p group frame in fp32 (TF32 off) with the whole-pixel encode
+    against the plain stacked encode, within 1e-5 x max|ref| per pass:
+    flagship-max's release weights for all aux passes; a seeded base-16
+    KPN (15 epilogues a call) for the aux sets that run the depth-only and
+    alpha-only bodies."""
+    if len(aux) == 3:
+        mcfg, epilogues = config.validate_channels(config.PRESETS["flagship-max"]).model, 21
+        params = _release_params("flagship-max")
+    else:
+        mcfg, epilogues = factory.ModelConfig(
+            in_channels=transforms.group_input_channels(aux), out_channels=6, base_width=16,
+            depth=2, act="leaky_relu", kernel_prediction=True, kpn_size=3, kpn_slots=2), 15
+        params = _seeded_params(mcfg)
+    outs = {}
+    with _full_fp32():
+        for fused in (True, False):
+            icfg = config.InferenceConfig(border=32, compute_dtype="float32",
+                                          use_pallas_ingest=fused)
+            den, _ = pipeline.make_group_frame_denoiser(mcfg, icfg, *FRAME, params, aux=aux)
+            _reset_launches()
+            outs[fused] = den(fourier_1080p["noisy"])
+            torch.cuda.synchronize()
+            _expect_launches(kpn_apply=2, kpn_softmax=2, bias_act=epilogues, group_encode=int(fused))
+    _assert_frames_agree(outs[True], outs[False], 1e-5)
+
+
+@pytest.mark.parametrize("aux,kernels", [
+    (("normal", "depth", "alpha"), ("radiance", "normal", "depth_alpha")),
+    (("normal", "depth"), ("radiance", "normal", "depth")),
+    (("alpha",), ("radiance", "alpha")),
+], ids=["normal+depth+alpha", "normal+depth", "alpha"])
+def test_per_pass_encode_of_the_1080p_frame_is_the_one_launch_encode(cuda, fourier_1080p, aux,
+                                                                    kernels):
+    """The frame's four groups through encode_group_inputs_per_pass into
+    one stack: a launch of each per-pass kernel a group, and the stack
+    equal bit for bit to the whole-pixel encode's."""
+    noisy = fourier_1080p["noisy"]
+    groups = tuple(passes.LIGHT_GROUPS)
+    out = torch.empty((len(groups), *FRAME, transforms.group_input_channels(aux)), device=cuda)
+    _reset_launches()
+    for i, g in enumerate(groups):
+        fused_ingest.encode_group_inputs_per_pass(noisy, g, aux, out=out[i])
+    torch.cuda.synchronize()
+    _expect_launches(**{k: len(groups) for k in kernels})
+    assert torch.equal(out, fused_ingest.encode_groups_fused(noisy, groups, aux))
+
+
+def _mirror_2x2(x):
+    """(H, W, C) -> (2H, 2W, C): the frame beside its mirror image, over
+    both mirrored top to bottom."""
+    top = torch.cat([x, x.flip(1)], 1)
+    return torch.cat([top, top.flip(0)], 0)
+
+
+@pytest.mark.parametrize("preset,scale,grid,chunks", [("kpn-hq", 2, (5, 8), 5),
+                                                      ("flagship-max", 1, (3, 4), 6)],
+                         ids=["kpn-hq-4k", "flagship-max-1080p"])
+def test_tiled_frame_at_full_size_equals_the_whole_frame_on_the_card(cuda, fourier_1080p, preset,
+                                                                    scale, grid, chunks):
+    """Tiles of 512 in lazy chunks of 8, exact stitch, against the whole
+    frame with the certified halo, fp32 with TF32 off: within 1e-4 x
+    max|ref| per pass, each kernel once a slot and chunk. kpn-hq on the
+    1080p frame mirrored 2x2 (2160x3840: 40 tiles of 656 in 5 chunks, 40
+    K1 launches); flagship-max's four groups at 1080p with the fused ingest
+    (48 tiles in 6 chunks), whose feathered stitch stays close to the exact
+    one. In bf16 the tiled frame gains (flagship-max: feathered), kpn-hq's
+    within 0.05 dB of the whole frame's gain."""
+    cfg = config.validate_channels(config.PRESETS[preset])
+    params = _release_params(preset)
+    make, group = _maker(cfg.model)
+    base = dataclasses.replace(cfg.infer, use_pallas_ingest=group)
+    kinds = {"whole": dataclasses.replace(base, tile=0, border=-1),
+             "exact": dataclasses.replace(base, tile=512, tile_batch=8)}
+    if group:
+        kinds["feather"] = dataclasses.replace(kinds["exact"], stitch="feather")
+    noisy, clean = fourier_1080p["noisy"], fourier_1080p["clean"]
+    if scale == 2:
+        noisy, clean = {k: _mirror_2x2(v) for k, v in noisy.items()}, _mirror_2x2(clean)
+    h, w = FRAME[0] * scale, FRAME[1] * scale
+    slots = cfg.model.kpn_slots
+    outs = {}
+    with _full_fp32():
+        for kind, icfg in kinds.items():
+            den, g = make(cfg.model, dataclasses.replace(icfg, compute_dtype="float32"), h, w, params)
+            n = 1 if kind == "whole" else chunks
+            if kind != "whole":
+                assert (g.rows, g.cols) == grid and g.net_size == 512 + 2 * g.halo
+            _reset_launches()
+            outs[kind] = den(noisy)
+            torch.cuda.synchronize()
+            _expect_launches(kpn_apply=slots * n, kpn_softmax=slots * n,
+                             bias_act=EPILOGUES[preset] * n, group_encode=int(group))
+    _assert_frames_agree(outs["exact"], outs["whole"], 1e-4)
+    if group:
+        for name, ref in outs["exact"].items():
+            d, scale_ = (outs["feather"][name] - ref).abs(), ref.abs().max().clamp_min(1e-30)
+            assert float(d.max() / scale_) <= 0.1 and float(d.mean() / scale_) <= 2e-3, name
+    del outs
+    gains = {}
+    for kind in ("whole", "feather" if group else "exact"):
+        den, _ = make(cfg.model, kinds[kind], h, w, params)
+        gains[kind] = _gain_db(den(noisy)["combined"], noisy["combined"], clean)
+    assert min(gains.values()) > 0, gains
+    if not group:
+        assert abs(gains["exact"] - gains["whole"]) <= GAIN_TOL_DB, gains
+
+
+def test_multiscale_frame_on_the_card(cuda, fourier_1080p):
+    """unet-multiscale (no release weights: seeded ones) in fp32: its base
+    UNet's epilogues at three scales, a finite 1080p frame."""
+    cfg = config.validate_channels(config.PRESETS["unet-multiscale"])
+    icfg = dataclasses.replace(cfg.infer, compute_dtype="float32")
+    den, _ = pipeline.make_joint_frame_denoiser(cfg.model, icfg, *FRAME, _seeded_params(cfg.model))
+    _reset_launches()
+    out = den(fourier_1080p["noisy"])
+    torch.cuda.synchronize()
+    _expect_launches(bias_act=EPILOGUES["unet-multiscale"])
+    assert out["combined"].shape == (*FRAME, 3)
+    assert all(torch.isfinite(v).all() for v in out.values())
+
+
+def test_flags_frame_without_a_group_on_the_card(cuda, fourier_1080p):
+    """flagship-flags (45 input channels, seeded weights) on the frame with
+    its subsurface group taken out: no subsurface pass out, every other
+    group's passes, and combined the recomposition of the three groups."""
+    cfg = config.validate_channels(config.PRESETS["flagship-flags"])
+    assert cfg.model.in_channels == 45 and cfg.data.use_flags
+    den, _ = pipeline.make_joint_frame_denoiser(
+        cfg.model, cfg.infer, *FRAME, _seeded_params(cfg.model), groups=tuple(cfg.data.groups),
+        use_flags=True)
+    out = den({k: v for k, v in fourier_1080p["noisy"].items() if not k.startswith("subsurface_")})
+    present = tuple(g for g in passes.LIGHT_GROUPS if g != "subsurface")
+    assert not [k for k in out if k.startswith("subsurface_")]
+    assert {f"{g}_{p}" for g in present for p in ("direct", "indirect", "color")} <= set(out)
+    assert all(torch.isfinite(v).all() for v in out.values())
+    rec = transforms.recompose({k: v for k, v in out.items() if k != "combined"}, present)
+    assert float((rec - out["combined"]).abs().max() / out["combined"].abs().max()) <= 1e-6
+
+
+def test_run_sequence_on_the_card(cuda, fourier_1080p):
+    """run_sequence over four noisy 1080p renders of one scene with
+    flagship-hq's release weights, PSNR and SSIM on the card: a warm-up
+    frame, then the frames twice (9 network calls); the report's keys,
+    finite values, and the first frame better than its input in both."""
+    from deepdenoiser_tpu_torch.inference import sequence
+
+    cfg = config.validate_channels(config.PRESETS["flagship-hq"])
+    clean = fourier_1080p["host_clean"]
+    frames = [fourier_1080p["host_noisy"]] + [synthetic.add_mc_noise(clean, spp=4, seed=1 + i)
+                                               for i in range(1, 4)]
+    frames = [{k: np.asarray(v, np.float32) for k, v in f.items()} for f in frames]
+    gt = np.asarray(clean["combined"], np.float32)
+    _reset_launches()
+    report = sequence.run_sequence(cfg.model, cfg.infer, _release_params("flagship-hq"), frames,
+                                   [gt] * 4, mode="joint")
+    _expect_launches(2 * 4 + 1, bias_act=EPILOGUES["flagship-hq"])
+    _check_report(report, 4, FRAME)
+    tm = metrics.tonemap_for_metrics
+    ref = tm(fourier_1080p["clean"])[None]
+    noisy = tm(fourier_1080p["noisy"]["combined"])[None]
+    assert report["psnr"][0] > float(metrics.psnr_per_image(noisy, ref)[0])
+    assert report["ssim"][0] > float(metrics.ssim(noisy, ref)[0])
+
+
+def _check_report(report, n, hw):
+    """A sequence report's keys, its frame count and size, finite values,
+    SSIM in (0, 1] and a positive PSNR."""
+    assert set(report) == SEQUENCE_KEYS
+    assert report["n_frames"] == n and (report["height"], report["width"]) == tuple(hw)
+    vals = [*report["psnr"], *report["ssim"], *report["latency_ms"], report["latency_ms_mean"]]
+    assert all(math.isfinite(v) for v in vals)
+    assert all(0 < v <= 1 for v in report["ssim"]) and min(report["psnr"]) > 0
+
+
+# training ------------------------------------------------------------------
+
+
+def test_train_step_on_the_card_matches_the_cpu_step(cuda):
+    """One make_train_step step of a small joint KPN (base 16, depth 2, 8
+    slots, fp32, TF32 off) on the card against the same step on the CPU
+    from the same state and batch: loss and grad_norm within rel 1e-5.
+    Adam's first update moves every element by about lr whatever its
+    gradient, so each parameter stays within 2 lr in any case; two runs
+    part by more than 1e-3 lr only where the gradient is at the level of
+    the two devices' rounding (cuDNN sums in other orders), which the bar
+    puts at 1e-5 of the gradient's global norm."""
+    from deepdenoiser_tpu_torch.training import train as train_lib
+
+    mcfg = factory.ModelConfig(backbone="unet", in_channels=41, out_channels=24, base_width=16,
+                               depth=2, kernel_prediction=True, kpn_size=5, kpn_slots=8,
+                               kpn_logit_norm=True, act="leaky_relu")
+    lr = 1e-3
+    tcfg = config.TrainConfig(learning_rate=lr, warmup_steps=0, schedule="constant",
+                              ema_decay=0.999)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.rand((4, 64, 64, 41), generator=gen)
+    sig = torch.cat([x[..., 9 * g : 9 * g + 6] for g in range(4)], dim=-1)
+    batch = {"x": x, "y": sig + 0.05 * torch.randn(sig.shape, generator=gen)}
+    step = train_lib.make_train_step(mcfg, tcfg)
+    with _full_fp32():
+        card = train_lib.create_state(mcfg, tcfg, seed=0)
+        _reset_launches()
+        card, card_m = step(card, {k: v.to(cuda) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        _expect_launches(kpn_apply=8, bwd_weights=8, kpn_softmax=8, bias_act=15)
+    cpu = train_lib.create_state(mcfg, tcfg, seed=0, device="cpu")
+    cpu, cpu_m = step(cpu, batch)
+    for k in ("loss", "grad_norm"):
+        assert float(card_m[k]) == pytest.approx(float(cpu_m[k]), rel=1e-5), k
+    diffs = torch.cat([(card.params[n].detach().cpu() - p.detach()).abs().flatten()
+                       for n, p in cpu.params.items()])
+    grads = torch.cat([p.grad.abs().flatten() for p in cpu.params.values()])
+    far = diffs > 1e-3 * lr
+    assert float(diffs.max()) <= 2 * lr
+    assert not far.any() or float(grads[far].max()) <= 1e-5 * float(cpu_m["grad_norm"])
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    """kpn-hq at its training recipe's batch 16 and crop 96 (warm-up 10, lr
+    2.5e-4, 8 crops a frame, one frame in five for validation), a log line
+    every step, a checkpoint every 2 and an eval every 4, saved as a config
+    JSON; and `synth-data` (4 Fourier frames of 192x192 at 4 and 16 spp) ->
+    `prepare-data` with it."""
+    _need_card()
+    from deepdenoiser_tpu_torch import cli
+
+    root = tmp_path_factory.mktemp("corpus")
+    base = config.PRESETS["kpn-hq"]
+    cfg = dataclasses.replace(
+        base,
+        data=dataclasses.replace(base.data, batch_size=16, crop=96, crops_per_frame=8,
+                                 validation_fraction=0.2),
+        train=dataclasses.replace(base.train, learning_rate=2.5e-4, warmup_steps=10, log_every=1,
+                                  checkpoint_every=2, eval_every=4))
+    path = root / "train.json"
+    config.save(cfg, path)
+    renders, shards = root / "renders", root / "shards"
+    assert cli.main(["synth-data", "--out", str(renders), "--frames", "4", "--size", "192"]) == 0
+    assert cli.main(["prepare-data", "--config", str(path), "--renders", str(renders),
+                     "--out", str(shards)]) == 0
+    return {"cfg": cfg, "config": path, "renders": renders, "shards": shards}
+
+
+def _jsonl(path):
+    return [json.loads(ln) for ln in path.read_text().splitlines() if ln.strip()]
+
+
+def _checkpoints(workdir):
+    return sorted(int(p.name) for p in (workdir / "checkpoints").iterdir() if p.name.isdigit())
+
+
+def _cli_denoise_checkpoint(cuda, workdir, frame_dir, out):
+    """`denoise --checkpoint --ema` of a run on the 1080p frame: kpn-hq's
+    launches, a finite frame."""
+    from deepdenoiser_tpu_torch import cli
+
+    _reset_launches()
+    assert cli.main(["denoise", "--config", str(workdir / "config.json"), "--checkpoint",
+                     str(workdir / "checkpoints"), "--ema", "--frame", str(frame_dir),
+                     "--out", str(out)]) == 0
+    torch.cuda.synchronize()
+    _expect_launches(**_frame_launches("kpn-hq"))
+    img = torch.from_numpy(exr.read_exr(out))
+    assert img.shape == (*FRAME, 3) and torch.isfinite(img).all()
+
+
+def test_cli_trains_resumes_denoises_and_evaluates_on_the_card(cuda, corpus, fourier_dir, tmp_path,
+                                                              monkeypatch, capsys):
+    """`train` 4 steps of the corpus's recipe: 8 forward, 8 d_w and no
+    d_noisy launches a step, the eval's and the preview's at step 4
+    counted apart; resumed to 6 (the metrics file continues, checkpoints
+    2, 4, 6); `denoise --checkpoint --ema` on the 1080p frame; `eval` of
+    the checkpoint over the corpus's render root."""
+    from deepdenoiser_tpu_torch import cli
+    from deepdenoiser_tpu_torch.data import loader
+    from deepdenoiser_tpu_torch.training import loop
+
+    in_eval = [0]
+
+    def counted(fn):
+        def run(*a, **kw):
+            before = kpn_apply.launches
+            try:
+                return fn(*a, **kw)
+            finally:
+                in_eval[0] += kpn_apply.launches - before
+        return run
+
+    monkeypatch.setattr(loop, "_run_eval", counted(loop._run_eval))
+    monkeypatch.setattr(loop, "_log_preview", counted(loop._log_preview))
+    work = tmp_path / "run"
+    argv = ["train", "--config", str(corpus["config"]), "--workdir", str(work),
+            "--shards", str(corpus["shards"])]
+    n_val = loader.make_dataset(corpus["shards"] / "validation", corpus["cfg"].data,
+                                training=False).batches_per_epoch
+    evals = 2 * n_val + 1  # the parameters and the EMA over each batch, and the preview
+    _reset_launches()
+    assert cli.main([*argv, "--steps", "4"]) == 0
+    torch.cuda.synchronize()
+    assert in_eval[0] == 8 * evals
+    _expect_launches(kpn_apply=8 * (4 + evals), bwd_weights=8 * 4, kpn_softmax=8 * (4 + evals),
+                     bias_act=EPILOGUES["kpn-hq"] * (4 + evals))
+    recs = _jsonl(work / "metrics_train.jsonl")
+    assert [r["step"] for r in recs] == [1, 2, 3, 4] and all(math.isfinite(r["loss"]) for r in recs)
+    assert [r["step"] for r in _jsonl(work / "metrics_eval.jsonl")] == [4]
+    assert (work / "previews" / "step_00000004.png").is_file()
+
+    _reset_launches()
+    assert cli.main([*argv, "--steps", "6"]) == 0
+    torch.cuda.synchronize()
+    _expect_launches(2, kpn_apply=8, bwd_weights=8, kpn_softmax=8, bias_act=EPILOGUES["kpn-hq"])
+    assert [r["step"] for r in _jsonl(work / "metrics_train.jsonl")] == list(range(1, 7))
+    assert _checkpoints(work) == [2, 4, 6]
+
+    _cli_denoise_checkpoint(cuda, work, fourier_dir, tmp_path / "out.exr")
+    capsys.readouterr()
+    assert cli.main(["eval", "--config", str(work / "config.json"), "--checkpoint",
+                     str(work / "checkpoints"), "--renders", str(corpus["renders"])]) == 0
+    out = capsys.readouterr().out
+    _check_report(json.loads(out[out.index("{"):]), 4, (192, 192))
+
+
+@pytest.mark.parametrize("preset,dtype,feed,steps", [
+    ("kpn-hq", "bfloat16", "corpus", 100), ("flagship-hq", "bfloat16", "corpus", 30),
+    ("flagship-hq", "float32", "corpus", 30), ("kpn-hq", "bfloat16", "mixed-mc", 10),
+], ids=["kpn-hq-one-batch", "flagship-hq-one-batch", "flagship-hq-fp32-one-batch",
+        "kpn-hq-device-batches"])
+def test_make_train_step_on_the_card(cuda, corpus, preset, dtype, feed, steps):
+    """make_train_step at the recipe's batch and crop: K1 and its d_w once a
+    slot a step for kpn-hq, an epilogue a conv forward, finite losses. On
+    one fixed batch of the corpus at lr 1e-3 (constant): kpn-hq's loss
+    halves in 100 steps; flagship-hq, which diverges at that lr, runs 30,
+    in bf16 and in fp32 with TF32 off. On a new mixed-mc batch made on the
+    card each step (data/synthetic_device.py), at the recipe's own lr."""
+    from deepdenoiser_tpu_torch.data import loader
+    from deepdenoiser_tpu_torch.training import train as train_lib
+
+    mcfg = dataclasses.replace(config.validate_channels(config.PRESETS[preset]).model,
+                               compute_dtype=dtype)
+    tcfg = corpus["cfg"].train
+    if feed == "corpus":
+        tcfg = dataclasses.replace(tcfg, learning_rate=1e-3, warmup_steps=0, schedule="constant")
+        dcfg = corpus["cfg"].data
+        raw = loader.make_dataset(corpus["shards"] / "train", dcfg, training=False)[(0, 0)]
+        batch = loader.make_batch_encoder(dcfg)({k: v.to(cuda) for k, v in raw.items()})
+        batches = itertools.repeat(batch, steps)
+    else:
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        batches = (synthetic_device.training_batch(gen, 16, 96, "joint", feed) for _ in range(steps))
+    state = train_lib.create_state(mcfg, tcfg, seed=0)
+    step = train_lib.make_train_step(mcfg, tcfg)
+    k1 = mcfg.kpn_slots if mcfg.kernel_prediction else 0
+    losses = []
+    with _full_fp32() if dtype == "float32" else contextlib.nullcontext():
+        _reset_launches()
+        for b in batches:
+            state, mets = step(state, b)
+            losses.append(float(mets["loss"]))
+    _expect_launches(steps, kpn_apply=k1, bwd_weights=k1, kpn_softmax=k1, bias_act=EPILOGUES[preset])
+    assert all(math.isfinite(v) for v in losses), losses
+    if preset == "kpn-hq" and feed == "corpus":
+        assert losses[-1] < 0.5 * losses[0], losses
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_cli_train_under_torch_distributed_run_on_the_card(cuda, corpus, fourier_dir, tmp_path):
+    """`train` under torch.distributed.run, two ranks sharing the card over
+    gloo, 4 steps of the corpus's recipe: rank 0 reports the group, the
+    metrics file holds every step with a finite loss, the last checkpoint
+    is step 4; one process then denoises the 1080p frame from it."""
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    work = tmp_path / "run"
+    argv = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node",
+            "2", "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
+            "-m", "deepdenoiser_tpu_torch.cli", "train", "--config", str(corpus["config"]),
+            "--workdir", str(work), "--shards", str(corpus["shards"]), "--steps", "4"]
+    # a session of its own, so a timeout stops the launcher and its ranks together
+    proc = subprocess.Popen(argv, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    assert proc.returncode == 0, (stdout + stderr)[-3000:]
+    assert any(ln.startswith("[dist]") for ln in stdout.splitlines()), stdout[-3000:]
+    recs = _jsonl(work / "metrics_train.jsonl")
+    assert [r["step"] for r in recs] == [1, 2, 3, 4] and all(math.isfinite(r["loss"]) for r in recs)
+    assert _checkpoints(work)[-1] == 4
+    _cli_denoise_checkpoint(cuda, work, fourier_dir, tmp_path / "out.exr")
+
+
+def test_batch_frame_denoiser_on_a_4_way_mesh_of_one_card(cuda, fourier_1080p):
+    """Four noisy 1080p renders of one scene through
+    make_batch_frame_denoiser on the data mesh ["cuda:0"] * 4, kpn-hq in
+    bf16: a frame's launches four times, and each frame within 1e-4 x
+    max|ref| of its own one-frame denoise."""
+    from deepdenoiser_tpu_torch.inference import sequence
+    from deepdenoiser_tpu_torch.parallel import mesh
+
+    cfg = config.validate_channels(config.PRESETS["kpn-hq"])
+    params = _release_params("kpn-hq")
+    clean = fourier_1080p["host_clean"]
+    frames = [fourier_1080p["noisy"]] + [_on_card(synthetic.add_mc_noise(clean, spp=4, seed=2 + i))
+                                         for i in range(3)]
+    batch = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
+    bden, _ = sequence.make_batch_frame_denoiser(
+        cfg.model, cfg.infer, mesh.make_mesh(4, "data", devices=["cuda:0"] * 4), *FRAME, params)
+    one, _ = pipeline.make_joint_frame_denoiser(cfg.model, cfg.infer, *FRAME, params)
+    _reset_launches()
+    got = bden(batch)
+    torch.cuda.synchronize()
+    _expect_launches(4, **_frame_launches("kpn-hq"))
+    assert got.shape == (4, *FRAME, 3)
+    for i, f in enumerate(frames):
+        _assert_frames_agree({"combined": got[i]}, {"combined": one(f)["combined"]}, 1e-4)
+
+
+@pytest.mark.parametrize("preset,bands", [("kpn-hq", 2), ("kpn-hq", 4), ("flagship-max", 4)],
+                         ids=["kpn-hq-2", "kpn-hq-4", "flagship-max-4"])
+def test_banded_1080p_frame_on_one_card_equals_the_whole_frame(cuda, fourier_1080p, preset, bands):
+    """The 1080p frame in row bands on the spatial mesh ["cuda:0"] * bands
+    (flagship-max with the fused ingest), fp32 with TF32 off: within 1e-4 x
+    max|ref| per pass of the whole frame with the certified halo, the
+    network's kernels once a band, the group encode once a frame. In bf16
+    the banded frame gains, kpn-hq's within 0.05 dB of its fp32 gain."""
+    from deepdenoiser_tpu_torch.parallel import mesh
+
+    cfg = config.validate_channels(config.PRESETS[preset])
+    params = _release_params(preset)
+    make, group = _maker(cfg.model)
+    icfg = dataclasses.replace(cfg.infer, spatial_shard=True, use_pallas_ingest=group)
+    spatial = mesh.make_mesh(bands, "spatial", devices=["cuda:0"] * bands)
+    want = {k: v * (1 if k == "group_encode" else bands)
+            for k, v in _frame_launches(preset, fused=group).items()}
+    noisy, clean = fourier_1080p["noisy"], fourier_1080p["clean"]
+    with _full_fp32():
+        icfg32 = dataclasses.replace(icfg, compute_dtype="float32")
+        banded, _ = make(cfg.model, icfg32, *FRAME, params, mesh=spatial)
+        _reset_launches()
+        got = banded(noisy)
+        torch.cuda.synchronize()
+        _expect_launches(**want)
+        ref = make(cfg.model, icfg32, *FRAME, params)[0](noisy)
+    _assert_frames_agree(got, ref, 1e-4)
+    den, _ = make(cfg.model, icfg, *FRAME, params, mesh=spatial)
+    _reset_launches()
+    out = den(noisy)
+    torch.cuda.synchronize()
+    _expect_launches(**want)
+    gain = _gain_db(out["combined"], noisy["combined"], clean)
+    assert gain > 0
+    if not group:
+        assert abs(gain - _gain_db(got["combined"], noisy["combined"], clean)) <= GAIN_TOL_DB
+
+
+def test_release_export_of_a_recipe_run_denoises_through_the_cli(cuda, fourier_1080p, fourier_dir,
+                                                                tmp_path):
+    """kpn-hq through the recipe without a teacher, from its release npz (2
+    steps at crop 32, a validation at step 2): 8 K1 and 8 d_w launches a
+    step, 8 K1 a validation batch; the -best checkpoint's extra names the
+    model; tools/export_release_weights.py writes the release file's keys,
+    shapes and dtypes; `denoise --weights` with it gains on the 1080p
+    frame."""
+    from deepdenoiser_tpu_torch import cli
+    from deepdenoiser_tpu_torch.tools import export_release_weights, pretrain_flagship
+    from deepdenoiser_tpu_torch.training.checkpoint import CheckpointManager
+
+    out = tmp_path / "run"
+    _reset_launches()
+    assert pretrain_flagship.main([
+        "--model", "kpn-hq", "--crop", "32", "--batch", "2", "--steps", "2", "--val-every", "2",
+        "--log-every", "1", "--out", str(out),
+        "--init-from", str(REPO / "weights" / RELEASE["kpn-hq"])]) == 0
+    torch.cuda.synchronize()
+    forwards = 2 + pretrain_flagship.VAL_BATCHES
+    _expect_launches(kpn_apply=8 * forwards, bwd_weights=8 * 2, kpn_softmax=8 * forwards,
+                     bias_act=EPILOGUES["kpn-hq"] * forwards)
+    _, extra = CheckpointManager(f"{out}-best").read_latest(map_location="cpu")
+    assert set(extra) == {"model", "mode", "val_psnr", "family"}
+    assert (extra["model"], extra["mode"]) == ("kpn-hq", "joint")
+    npz = tmp_path / "kpn_hq_best_f16.npz"
+    assert export_release_weights.main(["--ckpt", f"{out}-best", "--out", str(npz),
+                                        "--model", "kpn-hq"]) == 0
+    with np.load(npz) as a, np.load(REPO / "weights" / RELEASE["kpn-hq"]) as b:
+        assert {k: (a[k].shape, a[k].dtype) for k in a.files} == \
+            {k: (b[k].shape, b[k].dtype) for k in b.files}
+    _reset_launches()
+    assert cli.main(["denoise", "--preset", "kpn-hq", "--weights", str(npz), "--frame",
+                     str(fourier_dir), "--out", str(tmp_path / "out.exr")]) == 0
+    torch.cuda.synchronize()
+    _expect_launches(**_frame_launches("kpn-hq"))
+    img = torch.from_numpy(exr.read_exr(tmp_path / "out.exr")).to(cuda)
+    assert _gain_db(img, fourier_1080p["noisy"]["combined"], fourier_1080p["clean"]) > 0
+
+
+# the traced frame ----------------------------------------------------------
+
+
+def test_traced_1080p_frame_recomposes_on_the_card(cuda, traced_1080p):
+    """The traced frame at 1024 and at 4 spp: finite 1080p passes, and
+    combined the recomposition of the groups within 2e-5."""
+    for f in (traced_1080p["gt"], traced_1080p["noisy"]):
+        assert f["combined"].shape == (*FRAME, 3)
+        assert all(torch.isfinite(v).all() for v in f.values())
+        assert float((f["combined"] - transforms.recompose(f)).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_tracer_estimates_on_the_card_are_within_monte_carlo_error_of_the_cpu(cuda, seed):
+    """make_scene(seed) at 96x128 and 64 spp (scene 0 has emitters, 5
+    none): the deterministic buffers under the flip bar, and the direct
+    and indirect estimates on the card within 1.5x the RMS spread of two
+    independent CPU estimates (draw seeds 1 and 2) of each other."""
+    renders = {}
+    for name, dev, key in (("card", cuda, 1), ("cpu", "cpu", 1), ("cpu2", "cpu", 2)):
+        out = mc_tracer.render(mc_tracer.make_scene(seed, device=dev), 96, 128, 64,
+                               seeded(key, dev))
+        renders[name] = {k: v.cpu() for k, v in out.items()}
+    card, cpu, cpu2 = renders["card"], renders["cpu"], renders["cpu2"]
+    torch_flips.assert_flips_only({k: v.numpy() for k, v in card.items()},
+                                  {k: v.numpy() for k, v in cpu.items()})
+
+    def rms(a, b):
+        return float((a - b).pow(2).mean().sqrt())
+
+    for p in ("diffuse_direct", "diffuse_indirect"):
+        spread = rms(cpu[p], cpu2[p])
+        assert max(rms(card[p], c[p]) for c in (cpu, cpu2)) <= 1.5 * spread, p
+
+
+# the tools -----------------------------------------------------------------
+
+
+def _count_frames(monkeypatch) -> list:
+    """A list that gets one [frames, K1 launches] record per joint or group
+    frame denoiser called from now on, in the order of their first calls."""
+    records = []
+
+    def counted(call):
+        def run(self, pass_dict):
+            if "_counted" not in self.__dict__:
+                self._counted = [0, 0]
+                records.append(self._counted)
+            before = kpn_apply.launches
+            out = call(self, pass_dict)
+            self._counted[0] += 1
+            self._counted[1] += kpn_apply.launches - before
+            return out
+        return run
+
+    for cls in (pipeline.JointFrameDenoiser, pipeline.GroupFrameDenoiser):
+        monkeypatch.setattr(cls, "__call__", counted(cls.__call__))
+    return records
+
+
+def _expect_frame_launches(records, k1_per_frame, epilogues_per_frame, **per_frame):
+    """Each frame denoiser's K1 launches a frame (one entry a denoiser, in
+    order), and every kernel's launches in all: the softmax beside each K1
+    launch, the epilogues of every denoiser's frames, the others named a
+    frame."""
+    assert len(records) == len(k1_per_frame), records
+    assert all(n >= 1 and k == want * n for (n, k), want in zip(records, k1_per_frame)), records
+    frames = sum(n for n, _ in records)
+    k1 = sum(k for _, k in records)
+    _expect_launches(kpn_apply=k1, kpn_softmax=k1,
+                     bias_act=sum(n * e for (n, _), e in zip(records, epilogues_per_frame)),
+                     **{k: v * frames for k, v in per_frame.items()})
+
+
+def _run_tool(monkeypatch, capsys, name, argv) -> tuple:
+    """tools/<name>.main(argv) in-process on the card: (its last JSON line,
+    the frame denoisers' records, its stdout)."""
+    import importlib
+
+    module = importlib.import_module(f"deepdenoiser_tpu_torch.tools.{name}")
+    records = _count_frames(monkeypatch)
+    capsys.readouterr()
+    _reset_launches()
+    assert module.main(argv) == 0
+    torch.cuda.synchronize()
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if ln.startswith("{") and ln.endswith("}")]
+    return (json.loads(lines[-1]) if lines else None), records, out
+
+
+def _gains_positive(row):
+    assert all(v > 0 for k, v in row.items() if "gain" in k), row
+
+
+SMALL = ["--height", "540", "--width", "960"]
+
+
+@pytest.mark.parametrize("model,k1", [("kpn-hq", 8), ("kpn", 2)])
+def test_bench_model_on_the_card(cuda, monkeypatch, capsys, model, k1):
+    rec, records, _ = _run_tool(monkeypatch, capsys, "bench_model",
+                                ["--model", model, *SMALL, "--chain", "2", "--samples", "2"])
+    _expect_frame_launches(records, [k1], [EPILOGUES[model]])
+    assert rec["model"] == model and rec["latency_ms"] > 0 and len(rec["samples_ms"]) == 2
+    _gains_positive(rec)
+
+
+@pytest.mark.parametrize("tiling,k1", [([], 8), (["--tile", "256", "--tile-batch", "8"], 16)],
+                         ids=["whole", "tiled"])
+def test_bench_4k_on_the_card(cuda, monkeypatch, capsys, tiling, k1):
+    """kpn-hq over 2 frames of 540x960, whole or in 12 tiles of 256 in two
+    chunks of 8 (one network call a chunk)."""
+    rec, records, _ = _run_tool(monkeypatch, capsys, "bench_4k",
+                                ["--model", "kpn-hq", "--frames", "2", *SMALL, *tiling])
+    _expect_frame_launches(records, [k1], [EPILOGUES["kpn-hq"] * k1 // 8])
+    assert rec["psnr_mean"] > rec["psnr_noisy_mean"] and len(rec["latency_ms"]) == 2
+    assert rec["resolution"] == "960x540"
+
+
+def test_bench_sequence_on_the_card(cuda, monkeypatch, capsys):
+    rec, records, _ = _run_tool(monkeypatch, capsys, "bench_sequence", [
+        "--model", "kpn-hq", "--weights", str(REPO / "weights" / RELEASE["kpn-hq"]),
+        "--frames", "4", *SMALL])
+    _expect_frame_launches(records, [8], [EPILOGUES["kpn-hq"]])
+    assert rec["gain_db_mean"] > 0 and len(rec["frames"]) == 4
+
+
+def test_bench_input_pipeline_on_the_card(cuda, monkeypatch, capsys, tmp_path):
+    """Its two timed paths, each after a warm-up step: 8 K1 and 8 d_w a
+    step, every rate finite and positive."""
+    from deepdenoiser_tpu_torch.tools import bench_input_pipeline
+
+    shards = bench_input_pipeline._build_corpus(tmp_path, 32)
+    rec, records, _ = _run_tool(monkeypatch, capsys, "bench_input_pipeline", [
+        "--model", "kpn-hq", "--batch", "2", "--crop", "32", "--steps", "3",
+        "--shards", str(shards)])
+    assert records == []
+    _expect_launches(2 * (3 + 1), kpn_apply=8, bwd_weights=8, kpn_softmax=8,
+                     bias_act=EPILOGUES["kpn-hq"])
+    for key in ("host_iter_batches_per_s", "grain_2dispatch_steps_per_s",
+                "synth_fused_steps_per_s", "grain_vs_synth"):
+        assert math.isfinite(rec[key]) and rec[key] > 0, key
+
+
+def test_eval_holdout_on_the_card(cuda, monkeypatch, capsys):
+    """flagship on its four families at 540x960, one frame at 4 spp."""
+    rec, records, _ = _run_tool(monkeypatch, capsys, "eval_holdout",
+                                [*SMALL, "--frames", "1", "--spp", "4"])
+    _expect_frame_launches(records, [0] * 4, [EPILOGUES["flagship"]] * 4)
+    for row in rec["eval_holdout"]:
+        _gains_positive(row)
+
+
+def test_eval_zoo_on_the_card(cuda, monkeypatch, capsys):
+    """kpn-hq, flagship-hq and kpn (group) at 540x960, the traced family
+    among the columns."""
+    models = (("kpn-hq", 8), ("flagship-hq", 0), ("kpn", 2))
+    rec, records, _ = _run_tool(monkeypatch, capsys, "eval_zoo",
+                                ["--models", *(m for m, _ in models), *SMALL, "--frames", "1"])
+    _expect_frame_launches(records, [k for _, k in models], [EPILOGUES[m] for m, _ in models])
+    assert [r["model"] for r in rec["zoo"]] == [m for m, _ in models]
+    for row in rec["zoo"]:
+        _gains_positive(row)
+        assert row["latency_ms"] is not None and "mc_gain_db" in row
+
+
+def test_profile_tool_on_the_card(cuda, monkeypatch, capsys, tmp_path):
+    """A Chrome trace of two flagship frames, each its own span."""
+    _, records, _ = _run_tool(monkeypatch, capsys, "profile", [
+        "--iters", "2", "--out", str(tmp_path), "--height", "270", "--width", "480"])
+    _expect_frame_launches(records, [0], [EPILOGUES["flagship"]])
+    names = {e.get("name") for e in json.loads((tmp_path / "trace.json").read_text())["traceEvents"]}
+    assert {"frame_0", "frame_1"} <= names
+
+
+def test_diag_multiscale_on_the_card(cuda, monkeypatch, capsys):
+    """On seeded weights (the repo ships none): its base UNet at three, two
+    and one scales, finite rows."""
+    from deepdenoiser_tpu_torch.tools import eval_zoo
+    from deepdenoiser_tpu_torch.tools.pretrain_flagship import MODELS
+
+    params = _seeded_params(MODELS["multiscale"])
+    monkeypatch.setattr(eval_zoo, "load_model_params",
+                        lambda name: (MODELS[name], params, "joint"))
+    rec, records, _ = _run_tool(monkeypatch, capsys, "diag_multiscale",
+                                ["--frames", "1", "--height", "256", "--width", "384"])
+    per_scale = EPILOGUES["unet-multiscale"] // 3
+    _expect_frame_launches(records, [0] * 3, [per_scale * n for n in (3, 2, 1)])
+    rows = rec["multiscale_diag"]
+    assert [r["n_scales"] for r in rows] == [3, 2, 1]
+    assert all(math.isfinite(v) for r in rows for v in r.values())
+
+
+@pytest.mark.parametrize("name", ["sweep_bench", "sweep_joint"])
+def test_sweep_measure_on_the_card(cuda, monkeypatch, name):
+    """measure() of each sweep's first config (s2d stem, depth 3, 14
+    epilogues a frame) at 270x480: two warm-up frames, then K x SAMPLES."""
+    import importlib
+
+    from deepdenoiser_tpu_torch.tools import sweep_bench
+
+    module = importlib.import_module(f"deepdenoiser_tpu_torch.tools.{name}")
+    monkeypatch.setattr(module, "H", 270)
+    monkeypatch.setattr(module, "W", 480)
+    frame = sweep_bench.bench_frame(270, 480, cuda)
+    first = module.CONFIGS[0]
+    _reset_launches()
+    ms = module.measure(*first, frame) if name == "sweep_bench" else module.measure(first, frame)
+    torch.cuda.synchronize()
+    _expect_launches(2 + module.K * module.SAMPLES, bias_act=14)
+    assert math.isfinite(ms) and ms > 0
+
+
+@pytest.mark.parametrize("model", ["flagship-hq", "flagship"])
+def test_roofline_of_the_unet_presets_on_the_card(cuda, monkeypatch, capsys, model):
+    """As kpn-hq's above, for the two plain UNets: no K1 launch."""
+    _, records, out = _run_tool(monkeypatch, capsys, "roofline",
+                                ["--model", model, "--border", "32", "--chain", "2"])
+    assert all(k == 0 for _, k in records) and records
+    rep = json.loads(out[out.index("{"):])
+    assert 0 < rep["mfu"] <= 1 and 0 < rep["hbm_utilization"] <= 1.05
+    assert rep["device"] == torch.cuda.get_device_name(0) and rep["weights"] == "release"
+
+
+def test_traffic_breakdown_of_a_kpn_hq_frame_on_the_card(cuda, monkeypatch, capsys, tmp_path):
+    """--time: the stages' times, and K1's row of the op table holding the
+    frame's 8 launches."""
+    import re
+
+    _, _, out = _run_tool(monkeypatch, capsys, "traffic_breakdown", [
+        "--model", "kpn-hq", "--border", "32", "--time", "--out", str(tmp_path / "report.txt")])
+    lines = out.splitlines()
+    rows = [m for ln in lines if (m := re.match(r"\s*kpn_apply\s.*\sx(\d+)\s*$", ln))]
+    assert len(rows) == 1 and int(rows[0].group(1)) == 8
+    assert kpn_apply.launches >= 8 and kpn_apply.launches % 8 == 0
+    stages = {m.group(1) for ln in lines
+              if (m := re.match(r"\s+(encode|net|decode\+recompose|FULL pipeline|sum of stages)"
+                                r"\s+[\d.]+ ms", ln))}
+    assert len(stages) == 5, stages
+
+
+@pytest.fixture(scope="module")
+def bench_frames():
+    """The headline bench's four families at 1080p on the card."""
+    _need_card()
+    from deepdenoiser_tpu_torch.tools import bench
+
+    return bench.build_frames(*FRAME, 1024, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("argv,models,k1", [
+    ([], ("flagship-hq", "flagship", "flagship-mc"), [0, 0, 0]),
+    (["--model", "kpn-hq"], ("kpn-hq", "flagship", "flagship-mc"), [8, 0, 0]),
+], ids=["defaults", "kpn-hq"])
+def test_headline_bench_record_on_the_card(cuda, monkeypatch, bench_frames, argv, models, k1):
+    """tools/bench on its 1080p families: the record's contract (value the
+    headline's fps, vs_baseline fps / 10), each endpoint's keys, a gain on
+    every family (the Gaussian-trained s2d flagship's on the traced one
+    only finite: it loses there in the JAX package's record too)."""
+    from deepdenoiser_tpu_torch.tools import bench
+
+    records = _count_frames(monkeypatch)
+    _reset_launches()
+    rec = bench.run(bench.parse_args(argv), bench_frames)
+    torch.cuda.synchronize()
+    _expect_frame_launches(records, k1, [EPILOGUES[m] for m in models])
+    assert {"metric", "value", "unit", "vs_baseline", "status", "headline", "speed", "mc"} <= set(rec)
+    assert (rec["metric"], rec["unit"], rec["status"]) == (
+        "1080p_full_multipass_denoise_throughput", "frames/sec/chip", "ok")
+    assert rec["value"] == rec["headline"]["fps"]
+    assert rec["vs_baseline"] == round(rec["headline"]["fps"] / 10, 3)
+    families = ("fourier", "holdout", "holdout2", "mc")
+    for key, model in zip(("headline", "speed", "mc"), models):
+        obj = rec[key]
+        assert set(obj) == {"model", "ms", "fps", "weights",
+                            *(f"{m}_{f}" for f in families for m in ("db", "ssim"))}
+        assert (obj["model"], obj["weights"]) == (model, "release")
+        assert obj["ms"] > 0 and obj["fps"] > 0
+        for f in families:
+            gain = obj[f"db_{f}"]
+            assert math.isfinite(gain) if (model, f) == ("flagship", "mc") else gain > 0, (key, f)

@@ -9,7 +9,7 @@ per-pass route. Inputs reach every clamp: negative radiance, albedo 0,
 normals beyond [-1, 1], alpha outside [0, 1], negative depth. Tolerance:
 atol 1e-6 (the same fp32 operations; log1p's and the division's last bit).
 The CUDA kernel itself is held to the plain version on the card by
-tests/test_torch_gpu.py and chip_smoke.py; here the wrapper's Python side
+tests/test_torch_gpu.py; here the wrapper's Python side
 (shapes, `out`, refusals, channel offsets, the C argument list) is checked.
 """
 

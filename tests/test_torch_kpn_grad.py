@@ -10,8 +10,7 @@ carried across, against jax.grad of the JAX model (the models' bar,
 max|Δ| <= 1e-4 x max|ref| per parameter).
 
 The backward kernels themselves (csrc/kpn_apply_bwd.cu) run only on the
-card: tests/test_torch_gpu.py and chip_smoke.py hold them to the plain
-backward there.
+card: tests/test_torch_gpu.py holds them to the plain backward there.
 """
 
 import flax.linen as fnn

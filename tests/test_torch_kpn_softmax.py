@@ -5,7 +5,7 @@ chain's, the CPU launches nothing, and the wrapper's argument checks.
 
 The logits are the head's: slot s of an (N,H,W,n_slots·k²) tensor, a view
 whose pixels are n_slots·k² floats apart. The kernel itself is held to the
-plain version on the card (tests/test_torch_gpu.py, chip_smoke.py).
+plain version on the card (tests/test_torch_gpu.py).
 """
 
 import itertools

@@ -3,8 +3,9 @@
 the JAX package's release format, recipe models and joint pipeline.
 
 The recipe runs here are tiny (rgb-small, crop 32, batch 2, a few steps on
-the CPU); the card runs kpn-hq at the recipe's batch and crop
-(chip_smoke.py phase `release`).
+the CPU); on the card tests/test_torch_gpu.py runs kpn-hq through the
+recipe, with and without a teacher, and exports and denoises with its
+result.
 """
 
 import dataclasses

@@ -57,8 +57,8 @@ RENAMED: Dict[str, str] = {
 
 NOT_PORTED: Dict[str, str] = {
     f"{JAX_PKG}/utils/tpu_guard.py": "guards the shared TPU against a second client; TPU-only",
-    "tools/check_pallas_tpu.py": "compiles the Pallas kernels for the TPU; chip_smoke.py builds "
-                                 "and checks the port's CUDA kernels",
+    "tools/check_pallas_tpu.py": "compiles the Pallas kernels for the TPU; tests/test_torch_gpu.py "
+                                 "builds and checks the port's CUDA kernels",
     "tools/dump_hlo.py": "dumps XLA's HLO; there is no XLA program in the port",
     "tools/watchdog_train.sh": "restarts training on a wedged TPU; TPU-only",
     f"{JAX_PKG}/parallel/mesh.py::batch_sharded": "a JAX sharding spec; the port's Mesh places "
