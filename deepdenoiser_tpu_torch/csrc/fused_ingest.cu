@@ -1,5 +1,5 @@
 // Fused ingest for Hopper (sm_90a), fp32: the per-pass encode chain of the
-// group-mode denoise, one pass over the raw render passes.
+// group-mode and joint-mode denoise, one pass over the raw render passes.
 //
 // Replaces the five TPU kernels of deepdenoiser_tpu/ops/fused_ingest.py,
 // all launched there through _run_2d, and their assembler
@@ -19,7 +19,16 @@
 //
 //   fused_group_encode_f32   every light group's whole network input in one
 //                            launch: the group path of the frame denoise
+//   fused_joint_encode_f32   the joint frame's padded plane in one launch:
+//                            the joint path of the frame denoise
 //   fused_<pass>_f32         one body alone, dense (float4) or strided
+//
+// The joint encode replaces no TPU kernel: the JAX package's joint encode
+// (transforms.encode_joint_inputs, then inference/tiled.pad_plane) is
+// plain XLA, which fuses it. In PyTorch the same chain is 16 elementwise
+// passes, a concatenation on the last axis that copies with a 164-byte
+// stride, and the plane's permute, reflection pad and copy back: each byte
+// of the plane is written several times. The kernel writes it once.
 //
 // What bounds them: memory. An element is read once and written once
 // (radiance: 20 B for a division and two log1p; the others 8 B for a clamp
@@ -54,6 +63,31 @@
 //     neighbouring lanes write 4*C/3 words apart: two- to four-way
 //     conflicts, accepted, since the tile passes through shared memory at a
 //     small fraction of its bandwidth. The copy-out reads it conflict-free.
+//   * The padded plane, once (joint_encode_kernel). The joint network reads
+//     a (PH, PW, C) fp32 plane, C = 9 * groups + aux channels (41): the
+//     frame's pixels encoded, mirrored (or, where a pad is not smaller
+//     than the frame, edge-repeated) into a border of the plane's halo and
+//     grid rounding. Its bound is bytes: each pass read once and the plane
+//     written once, 340 MB in and 372 MB out at 1080p (0.213 ms). A block
+//     owns JOINT_PIXELS consecutive plane pixels, one a thread: each finds
+//     its frame pixel once by the border rule (a shared table), then every
+//     lane issues all its loads of every group's direct, indirect and
+//     albedo and of the aux passes before the first result is computed
+//     (41 loads in flight a lane), lays the encoded pixels out in shared
+//     memory and copies the tile to the plane with float4 stores,
+//     neighbouring lanes on neighbouring 16 bytes: every sector of the
+//     plane is written whole, once. The run starts on the float4 grid
+//     (JOINT_PIXELS * C is a multiple of 4), so no offset is needed. The
+//     border re-reads frame pixels the interior reads too (about 9 % more
+//     reads at 1080p), from rows that neighbouring blocks read at about the
+//     same time, so mostly from the L2; at the 4K tile plan the bottom pad
+//     mirrors rows read 470 plane rows earlier, past what the L2 holds.
+//     Loads are not unrolled further: a lane's 41 independent loads and
+//     four resident blocks an SM (60 registers a thread) keep more bytes
+//     in flight than the memory system needs. Measured on an H100 (the
+//     benchmark's traced runs) it reaches 84 % of its bound at 1080p, 80 %
+//     at the 4K plan. Its clamps pass NaN on, as PyTorch's do, so the plane equals
+//     the plain chain bit for bit.
 //   * Dense form (ingest_dense_kernel), for a pass alone. The grid is sized
 //     to the work: a thread starts DENSE_UNROLL independent float4 loads per
 //     input before its first store and never loops, indices are 32-bit when
@@ -98,6 +132,8 @@ constexpr int DENSE_THREADS = 256;
 constexpr int DENSE_UNROLL = 2;
 constexpr int TILE_PIXELS = 256;  // group kernel; ops/fused_ingest.py: GROUP_TILE_PIXELS
 constexpr int MAX_GROUPS = 8;     // group kernel; ops/fused_ingest.py: GROUP_CAPACITY
+constexpr int JOINT_PIXELS = 256;    // joint kernel: plane pixels per block, one a thread
+constexpr int MAX_JOINT_GROUPS = 4;  // joint kernel; ops/fused_ingest.py: JOINT_CAPACITY
 
 // A (pixels, channels) view: element (p, ch) lives at p * ps + ch * cs.
 struct View {
@@ -112,32 +148,45 @@ struct Views {
   View out[NOUT];
 };
 
+// NaN through the clamps. With KEEP_NAN a body passes a NaN on as
+// PyTorch's clamp and clamp_min do (`v != v ? v : max(v, lo)`): the joint
+// encode, which equals the plain chain bit for bit. Without it fmaxf and
+// fminf turn a NaN into the bound: the group encode and the per-pass
+// kernels.
 struct RadianceOp {
   static constexpr int NIN = 3;   // direct, indirect, albedo
   static constexpr int NOUT = 2;  // log-demodulated direct, indirect
   float eps;
-  __device__ void operator()(const float* x, float* y) const {
+  template <bool KEEP_NAN>
+  __device__ void apply(const float* x, float* y) const {
     const float c = x[2] + eps;
-    y[0] = log1pf(fmaxf(x[0] / c, 0.0f));
-    y[1] = log1pf(fmaxf(x[1] / c, 0.0f));
+    const float u = x[0] / c;
+    const float v = x[1] / c;
+    y[0] = log1pf(KEEP_NAN && u != u ? u : fmaxf(u, 0.0f));
+    y[1] = log1pf(KEEP_NAN && v != v ? v : fmaxf(v, 0.0f));
   }
+  __device__ void operator()(const float* x, float* y) const { apply<false>(x, y); }
 };
 
 struct NormalOp {
   static constexpr int NIN = 1;
   static constexpr int NOUT = 1;
-  __device__ void operator()(const float* x, float* y) const {
-    y[0] = fminf(fmaxf(x[0], -1.0f), 1.0f);
+  template <bool KEEP_NAN>
+  __device__ void apply(const float* x, float* y) const {
+    y[0] = KEEP_NAN && x[0] != x[0] ? x[0] : fminf(fmaxf(x[0], -1.0f), 1.0f);
   }
+  __device__ void operator()(const float* x, float* y) const { apply<false>(x, y); }
 };
 
 struct DepthAlphaOp {
   static constexpr int NIN = 2;  // depth, alpha
   static constexpr int NOUT = 2;
-  __device__ void operator()(const float* x, float* y) const {
-    y[0] = log1pf(fmaxf(x[0], 0.0f));
-    y[1] = fminf(fmaxf(x[1], 0.0f), 1.0f);
+  template <bool KEEP_NAN>
+  __device__ void apply(const float* x, float* y) const {
+    y[0] = log1pf(KEEP_NAN && x[0] != x[0] ? x[0] : fmaxf(x[0], 0.0f));
+    y[1] = KEEP_NAN && x[1] != x[1] ? x[1] : fminf(fmaxf(x[1], 0.0f), 1.0f);
   }
+  __device__ void operator()(const float* x, float* y) const { apply<false>(x, y); }
 };
 
 struct DepthOp {
@@ -418,6 +467,148 @@ group_encode_kernel(GroupArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The joint encode into the padded plane
+// ---------------------------------------------------------------------------
+
+struct JointArgs {
+  const float* direct[MAX_JOINT_GROUPS];  // dense (height, width, 3)
+  const float* indirect[MAX_JOINT_GROUPS];
+  const float* albedo[MAX_JOINT_GROUPS];
+  const float* normal;  // dense (height, width, 3) or null
+  const float* depth;   // dense (height, width, 1) or null
+  const float* alpha;   // dense (height, width, 1) or null
+  float* out;           // dense (plane_h, plane_w, channels), 16-byte aligned
+  long long npix;       // plane_h * plane_w
+  int height, width;    // the frame
+  int plane_w;
+  int top, left;
+  int groups, channels;
+  int off_normal, off_depth, off_alpha;  // first channel of each aux pass within a pixel
+  int reflect;          // 1: reflect (no edge repeat), 0: replicate
+  float eps;
+};
+
+// The frame row or column that plane row or column o, `pad` past the
+// frame's first, reads: PyTorch's reflection_pad2d (pad < n) or
+// replication_pad2d.
+__device__ __forceinline__ int source_of(int o, int pad, int n, bool reflect) {
+  const int i = o - pad;
+  if (reflect) {
+    const int r = i < 0 ? -i : i;
+    return r < n ? r : 2 * (n - 1) - r;
+  }
+  return min(max(i, 0), n - 1);
+}
+
+// One block per run of JOINT_PIXELS consecutive plane pixels (a run may
+// span two plane rows). Thread t first finds plane pixel t's frame pixel;
+// then lane t holds elements t, t + THREADS, t + 2 THREADS of the run's
+// 3-channel passes (one 3-channel element each, 3 * JOINT_PIXELS in all)
+// and pixel t of its 1-channel passes, loads every group's direct,
+// indirect and albedo and the aux passes for them before it computes, and
+// writes the encoded pixels into the run's tile in shared memory. The tile
+// goes out with float4 stores.
+template <bool NORMAL, bool DEPTH, bool ALPHA>
+__global__ void __launch_bounds__(THREADS)
+joint_encode_kernel(JointArgs a) {
+  constexpr int K = JOINT_PIXELS * 3 / THREADS;  // 3-channel elements a lane
+  static_assert(JOINT_PIXELS == THREADS && K * THREADS == JOINT_PIXELS * 3,
+                "a pixel a lane, three 3-channel elements a lane");
+  extern __shared__ __align__(16) float tile[];  // JOINT_PIXELS * channels
+  __shared__ int src[JOINT_PIXELS];              // frame pixel of each plane pixel
+
+  const int tid = threadIdx.x;
+  const int C = a.channels;
+  const long long p0 = static_cast<long long>(blockIdx.x) * JOINT_PIXELS;
+  const long long rest = a.npix - p0;
+  const int valid = rest < JOINT_PIXELS ? static_cast<int>(rest) : JOINT_PIXELS;
+  const bool reflect = a.reflect != 0;
+  if (tid < valid) {
+    const long long p = p0 + tid;
+    const int row = static_cast<int>(p / a.plane_w);
+    const int col = static_cast<int>(p - static_cast<long long>(row) * a.plane_w);
+    src[tid] = source_of(row, a.top, a.height, reflect) * a.width +
+               source_of(col, a.left, a.width, reflect);
+  }
+  __syncthreads();
+
+  long long at[K];  // this lane's elements in a 3-channel pass
+  int px[K], ch[K];
+  bool ok[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int e = tid + k * THREADS;
+    px[k] = e / 3;
+    ch[k] = e - 3 * px[k];
+    ok[k] = px[k] < valid;
+    at[k] = ok[k] ? static_cast<long long>(src[px[k]]) * 3 + ch[k] : 0;
+  }
+
+  // every load of the lane before its first use
+  float d[MAX_JOINT_GROUPS][K], i[MAX_JOINT_GROUPS][K], c[MAX_JOINT_GROUPS][K];
+#pragma unroll
+  for (int g = 0; g < MAX_JOINT_GROUPS; ++g) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (g < a.groups && ok[k]) {
+        d[g][k] = a.direct[g][at[k]];
+        i[g][k] = a.indirect[g][at[k]];
+        c[g][k] = a.albedo[g][at[k]];
+      }
+    }
+  }
+  float nrm[K];
+  if (NORMAL) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) nrm[k] = ok[k] ? a.normal[at[k]] : 0.0f;
+  }
+  const bool own = tid < valid;
+  const float dep = DEPTH && own ? a.depth[src[tid]] : 0.0f;
+  const float alp = ALPHA && own ? a.alpha[src[tid]] : 0.0f;
+
+  const RadianceOp radiance{a.eps};
+#pragma unroll
+  for (int g = 0; g < MAX_JOINT_GROUPS; ++g) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (g < a.groups && ok[k]) {
+        float* dst = tile + px[k] * C + 9 * g + ch[k];
+        const float x[3] = {d[g][k], i[g][k], c[g][k]};
+        float y[2];
+        radiance.apply<true>(x, y);
+        dst[0] = y[0];
+        dst[3] = y[1];
+        dst[6] = c[g][k];
+      }
+    }
+  }
+  if (NORMAL) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (ok[k]) NormalOp{}.apply<true>(&nrm[k], tile + px[k] * C + a.off_normal + ch[k]);
+    }
+  }
+  if ((DEPTH || ALPHA) && own) {
+    const float x[2] = {dep, alp};
+    float y[2];
+    DepthAlphaOp{}.apply<true>(x, y);
+    if (DEPTH) tile[tid * C + a.off_depth] = y[0];
+    if (ALPHA) tile[tid * C + a.off_alpha] = y[1];
+  }
+  __syncthreads();
+
+  // the run is out[p0 * C, (p0 + valid) * C): p0 * C is a multiple of 4,
+  // so the tile's float4s are the plane's
+  const int n = valid * C;
+  float* base = a.out + p0 * C;
+  const int quads = n >> 2;
+  for (int q = tid; q < quads; q += THREADS) {
+    reinterpret_cast<float4*>(base)[q] = reinterpret_cast<const float4*>(tile)[q];
+  }
+  if (4 * quads + tid < n) base[4 * quads + tid] = tile[4 * quads + tid];
+}
+
 }  // namespace
 
 // Every entry point launches on `stream` and returns cudaGetLastError()
@@ -469,6 +660,81 @@ extern "C" int fused_group_encode_f32(const float* const* group_ptrs, int groups
     case 5: group_encode_kernel<true, false, true><<<grid, THREADS, 0, s>>>(a); break;
     case 6: group_encode_kernel<true, true, false><<<grid, THREADS, 0, s>>>(a); break;
     default: group_encode_kernel<true, true, true><<<grid, THREADS, 0, s>>>(a); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// group_ptrs: 3 * groups device pointers in host memory, [direct, indirect,
+// albedo] per group, each a dense (height, width, 3) tensor. normal
+// (height, width, 3), depth and alpha (height, width, 1) are dense, or null
+// where the aux set leaves them out; off_* is the pass's first channel
+// within a pixel of C = 9 * groups + aux channels. out: dense, 16-byte
+// aligned (top + height + bottom, left + width + right, C), the plane;
+// reflect 1 mirrors the frame into the border without repeating its edge
+// (each pad then smaller than its side), 0 repeats the edge pixel.
+extern "C" int fused_joint_encode_f32(const float* const* group_ptrs, int groups,
+                                      const float* normal, const float* depth, const float* alpha,
+                                      float* out, int height, int width,
+                                      int top, int bottom, int left, int right, int reflect,
+                                      int off_normal, int off_depth, int off_alpha,
+                                      float eps, void* stream) {
+  if (groups < 1 || groups > MAX_JOINT_GROUPS || height < 1 || width < 1 || top < 0 ||
+      bottom < 0 || left < 0 || right < 0 ||
+      static_cast<long long>(height) * width > 0x7fffffffLL ||
+      reinterpret_cast<unsigned long long>(out) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (reflect && (top >= height || bottom >= height || left >= width || right >= width)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int first_aux = 9 * groups;
+  const int c = first_aux + (normal ? 3 : 0) + (depth ? 1 : 0) + (alpha ? 1 : 0);
+  if ((normal && (off_normal < first_aux || off_normal + 3 > c)) ||
+      (depth && (off_depth < first_aux || off_depth >= c)) ||
+      (alpha && (off_alpha < first_aux || off_alpha >= c))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long plane_h = static_cast<long long>(top) + height + bottom;
+  const long long plane_w = static_cast<long long>(left) + width + right;
+  if (plane_h > 0x7fffffffLL || plane_w > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long npix = plane_h * plane_w;
+  const long long blocks = (npix + JOINT_PIXELS - 1) / JOINT_PIXELS;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  JointArgs a = {};
+  for (int g = 0; g < groups; ++g) {
+    a.direct[g] = group_ptrs[3 * g];
+    a.indirect[g] = group_ptrs[3 * g + 1];
+    a.albedo[g] = group_ptrs[3 * g + 2];
+  }
+  a.normal = normal;
+  a.depth = depth;
+  a.alpha = alpha;
+  a.out = out;
+  a.npix = npix;
+  a.height = height;
+  a.width = width;
+  a.plane_w = static_cast<int>(plane_w);
+  a.top = top;
+  a.left = left;
+  a.groups = groups;
+  a.channels = c;
+  a.off_normal = off_normal;
+  a.off_depth = off_depth;
+  a.off_alpha = off_alpha;
+  a.reflect = reflect;
+  a.eps = eps;
+  const unsigned int grid = static_cast<unsigned int>(blocks);
+  const size_t smem = static_cast<size_t>(JOINT_PIXELS) * c * sizeof(float);  // at most 41 KB
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((normal ? 4 : 0) | (depth ? 2 : 0) | (alpha ? 1 : 0)) {
+    case 0: joint_encode_kernel<false, false, false><<<grid, THREADS, smem, s>>>(a); break;
+    case 1: joint_encode_kernel<false, false, true><<<grid, THREADS, smem, s>>>(a); break;
+    case 2: joint_encode_kernel<false, true, false><<<grid, THREADS, smem, s>>>(a); break;
+    case 3: joint_encode_kernel<false, true, true><<<grid, THREADS, smem, s>>>(a); break;
+    case 4: joint_encode_kernel<true, false, false><<<grid, THREADS, smem, s>>>(a); break;
+    case 5: joint_encode_kernel<true, false, true><<<grid, THREADS, smem, s>>>(a); break;
+    case 6: joint_encode_kernel<true, true, false><<<grid, THREADS, smem, s>>>(a); break;
+    default: joint_encode_kernel<true, true, true><<<grid, THREADS, smem, s>>>(a); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,8 @@ The port of deepdenoiser_tpu/inference/pipeline.py:
 
   joint  encode all light groups into one 41-channel NHWC stack (+ one
          presence plane per group with use_flags) → reflect-pad to the
-         padded plane → DenoiserModel over the plane or its tiles → crop or
+         padded plane (on the card, one kernel launch writes the padded
+         plane) → DenoiserModel over the plane or its tiles → crop or
          stitch → expm1 / remodulate
   group  encode each light group into its own 14-channel stack, all groups
          as one (G, H, W, 14) batch → pad → DenoiserModel over the batch of
@@ -22,9 +23,10 @@ mode, runs on one device with the certified halo, as in the JAX package.
 
 PyTorch runs eagerly, so each factory builds the model once, loads the
 weights onto the device and returns a callable on a pass dict. The kernels
-follow the tensors: on the card the KPN filter apply (ops/kpn_apply.py)
-and, with InferenceConfig.use_pallas_ingest, the group encode
-(ops/fused_ingest.py) are CUDA kernels; on the CPU their plain versions.
+follow the tensors: on the card the KPN filter apply (ops/kpn_apply.py),
+the joint encode into the padded plane and, with
+InferenceConfig.use_pallas_ingest, the group encode (ops/fused_ingest.py)
+are CUDA kernels; on the CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -123,7 +125,14 @@ class JointFrameDenoiser:
     use_flags (flag-conditioned models): a group whose passes are missing
     from the frame is zero-filled, the groups' presence bits go in as
     constant planes after the encoded channels, and the absent groups are
-    left out of the outputs and of the recomposition."""
+    left out of the outputs and of the recomposition.
+
+    On the card, without scales or flags, and with a frame function that
+    runs on a padded plane (the tile grid's; the band-parallel one pads by
+    itself), one launch of the joint encode kernel
+    (ops/fused_ingest.encode_joint_plane) writes the padded plane and the
+    network runs on it; otherwise the plain encode and frame_fn run. Both
+    give the same plane bit for bit."""
 
     def __init__(self, model: factory.DenoiserModel, grid: tiled.TileGrid,
                  groups: Sequence[str], aux: Sequence[str], device: torch.device,
@@ -131,6 +140,7 @@ class JointFrameDenoiser:
         self.model, self.grid, self.device = model, grid, device
         self.groups, self.aux, self.scales = tuple(groups), tuple(aux), scales
         self.frame_fn, self.use_flags = frame_fn, use_flags
+        self.on_plane = _plane_entry(frame_fn, device, scales, use_flags)
 
     @torch.inference_mode()
     def __call__(self, pass_dict: Mapping[str, Any]) -> Dict[str, Tensor]:
@@ -140,21 +150,25 @@ class JointFrameDenoiser:
             present = self.groups
             h, w = self.grid.height, self.grid.width
             with tracing.span("encode"):
-                if self.use_flags:
-                    present = tuple(g for g in self.groups
-                                    if all(nm in given for nm in passes.group_passes(g)))
-                    for g in self.groups:
-                        if g not in present:
-                            for nm in passes.group_passes(g):
-                                pd[nm] = torch.zeros((h, w, 3), dtype=torch.float32,
-                                                     device=self.device)
-                enc = transforms.encode_joint_inputs(pd, self.groups, self.aux, scales=self.scales)
-                if self.use_flags:
-                    bits = torch.tensor([1.0 if g in present else 0.0 for g in self.groups],
-                                        dtype=torch.float32, device=self.device)
-                    enc = torch.cat((enc, bits.expand(h, w, len(self.groups))), dim=-1)
+                if self.on_plane is not None:
+                    plane = fused_ingest.encode_joint_plane(pd, self.grid, self.groups, self.aux)
+                else:
+                    if self.use_flags:
+                        present = tuple(g for g in self.groups
+                                        if all(nm in given for nm in passes.group_passes(g)))
+                        for g in self.groups:
+                            if g not in present:
+                                for nm in passes.group_passes(g):
+                                    pd[nm] = torch.zeros((h, w, 3), dtype=torch.float32,
+                                                         device=self.device)
+                    enc = transforms.encode_joint_inputs(pd, self.groups, self.aux,
+                                                         scales=self.scales)
+                    if self.use_flags:
+                        bits = torch.tensor([1.0 if g in present else 0.0 for g in self.groups],
+                                            dtype=torch.float32, device=self.device)
+                        enc = torch.cat((enc, bits.expand(h, w, len(self.groups))), dim=-1)
             with tracing.span("net"):
-                dec = self.frame_fn(enc)
+                dec = self.on_plane(plane) if self.on_plane is not None else self.frame_fn(enc)
             with tracing.span("decode"):
                 decoded = transforms.decode_joint_outputs(dec, pd, self.groups, scales=self.scales)
                 out: Dict[str, Tensor] = {}
@@ -164,6 +178,17 @@ class JointFrameDenoiser:
                     out[i_name] = decoded[i_name]
                     out[c_name] = given[c_name]
                 return _with_passthrough(out, given, present)
+
+
+def _plane_entry(frame_fn, device: torch.device, scales: Optional[Mapping[str, float]],
+                 use_flags: bool):
+    """frame_fn's padded-plane entry (tiled.make_tiled_apply's `on_plane`)
+    where the joint encode kernel can write the plane: the passes on the
+    card, no scales (the kernel encodes unscaled), no flag planes; None
+    where any of these fails or frame_fn has no such entry."""
+    if device.type != "cuda" or scales or use_flags:
+        return None
+    return getattr(frame_fn, "on_plane", None)
 
 
 def make_joint_frame_denoiser(

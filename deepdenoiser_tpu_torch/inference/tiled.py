@@ -110,17 +110,34 @@ def plan_grid(height: int, width: int, tile: int, halo: int, multiple: int) -> T
                     -(-height // tile), -(-width // tile))
 
 
-def pad_plane(frame: Tensor, grid: TileGrid) -> Tensor:
-    """(H, W, C) or (G, H, W, C) -> the padded plane(s): reflect-pad halo on
-    top/left, halo + grid rounding on bottom/right; edge replication when a
-    pad is not smaller than the frame (reflect needs pad < dim)."""
-    h, w = frame.shape[-3:-1]
-    if (h, w) != (grid.height, grid.width):
-        raise ValueError(f"frame {tuple(frame.shape)} does not match {grid}")
+def plane_pads(grid: TileGrid) -> Tuple[int, int, int, int, str]:
+    """(top, bottom, left, right, mode) of the padded plane: the halo on
+    top/left, halo + grid rounding on bottom/right; mode "reflect"
+    (PyTorch's: the edge pixel not repeated), or "replicate" when a pad is
+    not smaller than the frame (reflect needs pad < dim). The one rule of
+    the plane's border, for pad_plane and the joint encode kernel
+    (ops/fused_ingest.encode_joint_plane)."""
+    h, w = grid.height, grid.width
     ph, pw = grid.padded_hw
     hp = grid.halo
     top, bottom, left, right = hp, ph - h + hp, hp, pw - w + hp
     mode = "reflect" if max(top, bottom, left, right) < min(h, w) else "replicate"
+    return top, bottom, left, right, mode
+
+
+def plane_hw(grid: TileGrid) -> Tuple[int, int]:
+    """(height, width) of the padded plane."""
+    ph, pw = grid.padded_hw
+    return ph + 2 * grid.halo, pw + 2 * grid.halo
+
+
+def pad_plane(frame: Tensor, grid: TileGrid) -> Tensor:
+    """(H, W, C) or (G, H, W, C) -> the padded plane(s), bordered as
+    plane_pads says."""
+    h, w = frame.shape[-3:-1]
+    if (h, w) != (grid.height, grid.width):
+        raise ValueError(f"frame {tuple(frame.shape)} does not match {grid}")
+    top, bottom, left, right, mode = plane_pads(grid)
     # F.pad pads the last dims of an (N, C, H, W) tensor
     batched = frame.dim() == 4
     x = frame.permute(0, 3, 1, 2) if batched else frame.permute(2, 0, 1)[None]
@@ -147,7 +164,11 @@ def _tile_view(padded: Tensor, grid: TileGrid) -> Tensor:
 def extract_tiles(frame: Tensor, grid: TileGrid) -> Tensor:
     """frame (H, W, C) -> tiles (rows*cols, Th, Tw, C) from the padded
     plane, row-major over the grid."""
-    padded = pad_plane(frame, grid)
+    return plane_tiles(pad_plane(frame, grid), grid)
+
+
+def plane_tiles(padded: Tensor, grid: TileGrid) -> Tensor:
+    """extract_tiles from the padded plane (PH + 2hp, PW + 2hp, C)."""
     if grid.n_tiles == 1:
         return padded[None]
     v = _tile_view(padded, grid)  # (rows, cols, C, Th, Tw)
@@ -174,7 +195,9 @@ def make_tiled_apply(apply_fn: Callable[[Tensor], Tensor], grid: TileGrid,
                      out_channels: Optional[int] = None, tile_batch: int = 0,
                      batch_dims: int = 0, feather: bool = False,
                      ) -> Callable[[Tensor], Tensor]:
-    """Build `f(frame) -> denoised frame` running apply_fn over the tile grid.
+    """Build `f(frame) -> denoised frame` running apply_fn over the tile grid,
+    and `f.on_plane(plane)`, the same run on the frame's padded plane (what
+    pad_plane gives) for a caller that has made it already.
 
     apply_fn: (N, Th, Tw, Cin) -> (N, Th, Tw, Cout), the network.
     out_channels, when given, is checked against what the network returns.
@@ -219,9 +242,26 @@ def make_tiled_apply(apply_fn: Callable[[Tensor], Tensor], grid: TileGrid,
             outs.append(net(chunk))
         return torch.cat(outs, 0)[:n]
 
-    def check(frames: Tensor) -> None:
-        if frames.dim() != 3 + batch_dims:
-            raise ValueError(f"expected {3 + batch_dims} dims, got {tuple(frames.shape)}")
+    plane_shape = plane_hw(grid)
+
+    def entry(run_plane: Callable[[Tensor], Tensor]) -> Callable[[Tensor], Tensor]:
+        """f(frame) = run_plane(pad_plane(frame)); f.on_plane(plane) runs
+        on a plane that is already padded (the joint encode kernel writes
+        one)."""
+
+        def f(frames: Tensor) -> Tensor:
+            if frames.dim() != 3 + batch_dims:
+                raise ValueError(f"expected {3 + batch_dims} dims, got {tuple(frames.shape)}")
+            return run_plane(pad_plane(frames, grid))
+
+        def on_plane(planes: Tensor) -> Tensor:
+            if planes.dim() != 3 + batch_dims or tuple(planes.shape[-3:-1]) != plane_shape:
+                raise ValueError(f"plane {tuple(planes.shape)} is not the {plane_shape} "
+                                 f"plane of {grid}")
+            return run_plane(planes)
+
+        f.on_plane = on_plane
+        return f
 
     if lazy:
         # Memory-bounded mode: only one chunk of network tiles exists at a
@@ -232,13 +272,12 @@ def make_tiled_apply(apply_fn: Callable[[Tensor], Tensor], grid: TileGrid,
         # package flattens the plane to (H, W*C) first, against the TPU's
         # 128-lane padding of a narrow minor dimension; a CUDA tensor has no
         # such padding, so the NHWC plane is sliced as it is.
-        def f_lazy(frame: Tensor) -> Tensor:
-            check(frame)
+        def lazy_plane(plane: Tensor) -> Tensor:
             # (rows, cols, Th, Tw, C), a view of the plane
-            view = _tile_view(pad_plane(frame, grid), grid).permute(0, 1, 3, 4, 2)
+            view = _tile_view(plane, grid).permute(0, 1, 3, 4, 2)
             n = grid.n_tiles
             nchunks = -(-n // tile_batch)
-            idx = torch.arange(nchunks * tile_batch, device=frame.device) % n
+            idx = torch.arange(nchunks * tile_batch, device=plane.device) % n
             cores = []
             for ch in idx.reshape(nchunks, tile_batch):
                 tiles = view[ch // grid.cols, ch % grid.cols].contiguous()
@@ -246,20 +285,13 @@ def make_tiled_apply(apply_fn: Callable[[Tensor], Tensor], grid: TileGrid,
                 cores.append(out[:, hp : hp + grid.tile_h, hp : hp + grid.tile_w, :])
             return _assemble(torch.cat(cores, 0)[:n], grid)
 
-        return f_lazy
+        return entry(lazy_plane)
 
     if batch_dims == 0:
+        return entry(lambda plane: stitch(run_tiles(plane_tiles(plane, grid)), grid))
 
-        def f(frame: Tensor) -> Tensor:
-            check(frame)
-            return stitch(run_tiles(extract_tiles(frame, grid)), grid)
-
-        return f
-
-    def f_batched(frames: Tensor) -> Tensor:
-        check(frames)
-        g = frames.shape[0]
-        planes = pad_plane(frames, grid)
+    def batched_plane(planes: Tensor) -> Tensor:
+        g = planes.shape[0]
         if grid.n_tiles == 1:
             tiles = planes
         else:
@@ -272,7 +304,7 @@ def make_tiled_apply(apply_fn: Callable[[Tensor], Tensor], grid: TileGrid,
             return torch.stack([stitch_tiles_feathered(o, grid) for o in outs], 0)
         return stitch_tiles(outs, grid)
 
-    return f_batched
+    return entry(batched_plane)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,12 @@ The public functions keep the JAX names and take HWC or NHWC fp32 tensors:
     encode_depth_alpha(depth, alpha) -> (enc_depth, enc_alpha)
     encode_group_inputs_fused(pass_dict, group, aux) -> (..., H, W, 9 + aux)
     encode_groups_fused(pass_dict, groups, aux) -> (G, ..., H, W, 9 + aux)
+    encode_joint_plane(pass_dict, grid, groups, aux) -> the padded plane
 
+encode_joint_plane is the joint frame's input on the card: one launch of
+fused_joint_encode_f32 writes the whole padded plane, border included,
+that inference/tiled.pad_plane makes of transforms.encode_joint_inputs.
+It replaces no TPU kernel (the JAX joint encode is plain XLA).
 encode_groups_fused is what the group frame calls when
 InferenceConfig.use_pallas_ingest is set: one launch of the whole-pixel
 kernel (fused_group_encode_f32) encodes every light group into the
@@ -37,6 +42,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 from deepdenoiser_tpu_torch import passes, transforms
+from deepdenoiser_tpu_torch.inference import tiled
 from deepdenoiser_tpu_torch.ops import _build
 
 Tensor = torch.Tensor
@@ -62,17 +68,35 @@ _GROUP_ARGTYPES = (
 GROUP_CAPACITY = 8  # groups per launch (MAX_GROUPS of the CUDA source)
 GROUP_TILE_PIXELS = 256  # pixels per block (TILE_PIXELS of the CUDA source)
 
+# The joint encode into the padded plane. Its C argument list, in order:
+# the host array of 3 pointers per group, the group count, normal, depth,
+# alpha (null where the aux set leaves one out), out, the frame's height
+# and width, the pads top, bottom, left, right, reflect (1) or replicate
+# (0), the first channel of normal, depth and alpha within a pixel, eps,
+# the stream.
+_JOINT_ENTRY = "fused_joint_encode_f32"
+_JOINT_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    + [ctypes.c_int] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+)
+JOINT_CAPACITY = len(passes.LIGHT_GROUPS)  # groups per launch (MAX_JOINT_GROUPS)
+
 # Launches of each CUDA entry point since the last reset (plain counts; a
 # wrapper adds one where it launches and nowhere else). "group_encode"
 # counts fused_group_encode_f32, the others the per-pass entry points.
 launches: Dict[str, int] = {name: 0 for name in (*_KERNELS, "group_encode")}
+# Launches of fused_joint_encode_f32 since the last reset (a plain int, so
+# that a reader of plain counts finds it).
+joint_encode_launches = 0
 
 _fns: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
+    global joint_encode_launches
     for name in launches:
         launches[name] = 0
+    joint_encode_launches = 0
 
 
 def _kernel(name: str):
@@ -91,13 +115,13 @@ def _kernel(name: str):
     return fn
 
 
-def _group_kernel():
-    fn = _fns.get("group_encode")
+def _entry(symbol: str, argtypes: Sequence) -> object:
+    fn = _fns.get(symbol)
     if fn is None:
-        fn = getattr(_build.load("fused_ingest"), _GROUP_ENTRY)
-        fn.argtypes = list(_GROUP_ARGTYPES)
+        fn = getattr(_build.load("fused_ingest"), symbol)
+        fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-        _fns["group_encode"] = fn
+        _fns[symbol] = fn
     return fn
 
 
@@ -283,9 +307,10 @@ def group_tile_pixels(channels: int) -> int:
     return GROUP_TILE_PIXELS
 
 
-def _aux_offsets(aux: Sequence[str]) -> Dict[str, int]:
-    """First channel of each aux pass within a pixel, in the caller's order."""
-    at, ch = {}, 9
+def _aux_offsets(aux: Sequence[str], first: int = 9) -> Dict[str, int]:
+    """First channel of each aux pass within a pixel, in the caller's order,
+    the first at channel `first`."""
+    at, ch = {}, first
     for a in aux:
         if a not in passes.AUX_PASSES:
             raise KeyError(f"unknown aux pass {a!r}")
@@ -383,7 +408,7 @@ def encode_groups_fused(
             chunk = groups[g0 : g0 + GROUP_CAPACITY]
             ins = [_dense16(pass_dict[p]) for g in chunk for p in passes.group_passes(g)]
             ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
-            err = _group_kernel()(
+            err = _entry(_GROUP_ENTRY, _GROUP_ARGTYPES)(
                 ptrs, len(chunk),
                 *(aux_t[a].data_ptr() if a in at else None for a in passes.AUX_PASSES),
                 out[g0].data_ptr(), npix,
@@ -443,4 +468,78 @@ def encode_group_inputs_per_pass(
         encode_depth(pass_dict["depth"], out=out[..., at["depth"]])
     elif "alpha" in at:
         encode_alpha(pass_dict["alpha"], out=out[..., at["alpha"]])
+    return out
+
+
+def encode_joint_plane(
+    pass_dict: Mapping[str, Tensor],
+    grid: tiled.TileGrid,
+    groups: Sequence[str] = passes.LIGHT_GROUPS,
+    aux: Sequence[str] = passes.AUX_PASSES,
+) -> Tensor:
+    """The joint frame's padded plane, (PH + 2hp, PW + 2hp, 9 * groups + aux
+    channels) fp32: tiled.pad_plane(transforms.encode_joint_inputs(pass_dict,
+    groups, aux), grid), unscaled. On the card one launch of the joint
+    encode kernel reads each pass once and writes the plane, its border
+    included, equal to that chain bit for bit (NaN passed on as its clamps
+    pass it on); on the CPU the chain itself runs.
+
+    fp32 (H, W, C) passes on one device, (H, W) the grid's frame. An
+    unknown aux name or light group is a KeyError."""
+    return _joint_plane(pass_dict, grid, groups, aux, plain_on_cpu=True)
+
+
+def launch_joint_cuda(
+    pass_dict: Mapping[str, Tensor],
+    grid: tiled.TileGrid,
+    groups: Sequence[str] = passes.LIGHT_GROUPS,
+    aux: Sequence[str] = passes.AUX_PASSES,
+) -> Tensor:
+    """The joint-encode kernel entry itself: encode_joint_plane for CUDA
+    tensors; CPU tensors raise."""
+    return _joint_plane(pass_dict, grid, groups, aux, plain_on_cpu=False)
+
+
+def _joint_plane(pass_dict: Mapping[str, Tensor], grid: tiled.TileGrid, groups: Sequence[str],
+                 aux: Sequence[str], plain_on_cpu: bool) -> Tensor:
+    global joint_encode_launches
+    name = "encode_joint_plane"
+    groups = tuple(groups)
+    if not groups or len(groups) > JOINT_CAPACITY:
+        raise ValueError(f"fused_ingest.{name}: 1 to {JOINT_CAPACITY} light groups, "
+                         f"got {len(groups)}")
+    at = _aux_offsets(aux, 9 * len(groups))
+    named = [(p, 3) for g in groups for p in passes.group_passes(g)]
+    named += [(a, passes.channels(a)) for a in at]
+    first = pass_dict[named[0][0]]
+    for p, c in named:
+        t = pass_dict[p]
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_ingest.{name}: fp32 only, got {t.dtype} for {p!r}")
+        if t.device != first.device:
+            raise ValueError(f"fused_ingest.{name}: tensors on {first.device} and {t.device}")
+        if tuple(t.shape) != (grid.height, grid.width, c):
+            raise ValueError(f"fused_ingest.{name}: {p!r} is {tuple(t.shape)}, "
+                             f"want {(grid.height, grid.width, c)}")
+    if first.device.type == "cpu" and plain_on_cpu:
+        return tiled.pad_plane(transforms.encode_joint_inputs(pass_dict, groups, tuple(at)), grid)
+    if first.device.type != "cuda":
+        raise ValueError(f"fused_ingest.{name}: tensors on {first.device}, need a CUDA device")
+    top, bottom, left, right, mode = tiled.plane_pads(grid)
+    out = torch.empty((*tiled.plane_hw(grid), transforms.joint_input_channels(groups, tuple(at))),
+                      dtype=torch.float32, device=first.device)
+    ins = [pass_dict[p].contiguous() for g in groups for p in passes.group_passes(g)]
+    aux_t = {a: pass_dict[a].contiguous() for a in at}
+    ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
+    with torch.cuda.device(first.device):
+        err = _entry(_JOINT_ENTRY, _JOINT_ARGTYPES)(
+            ptrs, len(groups),
+            *(aux_t[a].data_ptr() if a in at else None for a in passes.AUX_PASSES),
+            out.data_ptr(), grid.height, grid.width, top, bottom, left, right,
+            int(mode == "reflect"), *(at.get(a, -1) for a in passes.AUX_PASSES),
+            transforms.DEMOD_EPS, torch.cuda.current_stream(first.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_ingest.{name}: kernel launch failed with cudaError {err}")
+    joint_encode_launches += 1
     return out

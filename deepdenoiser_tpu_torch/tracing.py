@@ -18,10 +18,11 @@ stack of open spans: record from one thread.
 The spans, by where they are opened:
 
   frame     inference/pipeline, each frame denoiser's __call__: the call
-  encode    the joint encode, the group encode (fused or stacked), the
-            rgb encode
-  net       the plane's network run, `frame_fn`: pad, tile gather, chunk
-            fill, crop or stitch (inference/tiled)
+  encode    the joint encode (on the card the padded plane with it), the
+            group encode (fused or stacked), the rgb encode
+  net       the plane's network run, `frame_fn` or its `on_plane`: pad
+            (not where the joint encode wrote the padded plane), tile
+            gather, chunk fill, crop or stitch (inference/tiled)
   chunk     inference/tiled, each network call over a plane or a chunk
             of tiles
   backbone  models/factory.DenoiserModel.forward: the network under the

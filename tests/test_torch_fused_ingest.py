@@ -11,6 +11,7 @@ versions on the card by tests/test_torch_gpu.py; here the launcher's Python
 side (views, strides, refusals, argument lists) is checked.
 """
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -20,8 +21,10 @@ import pytest
 import torch
 
 from deepdenoiser_tpu import transforms as jtransforms
+from deepdenoiser_tpu.inference import tiled as jtiled
 from deepdenoiser_tpu.ops import fused_ingest as jfused
-from deepdenoiser_tpu_torch import transforms
+from deepdenoiser_tpu_torch import passes, transforms
+from deepdenoiser_tpu_torch.inference import tiled
 from deepdenoiser_tpu_torch.ops import fused_ingest
 
 REPO = Path(__file__).resolve().parents[1]
@@ -30,14 +33,14 @@ AUX_SUBSETS = [(), ("depth",), ("alpha",), ("normal", "depth"), ("normal", "dept
 ATOL = {"radiance": 1e-6, "normal": 1e-7, "depth_alpha": 1e-6, "depth": 1e-6, "alpha": 1e-7}
 
 
-def _raw_passes(lead, seed=0):
+def _raw_passes(lead, seed=0, groups=("diffuse", "glossy")):
     rng = np.random.default_rng(seed)
 
     def rand(c, lo, hi):
         return (lo + (hi - lo) * rng.random((*lead, c))).astype(np.float32)
 
     pd = {"normal": rand(3, -1.5, 1.5), "depth": rand(1, -2.0, 30.0), "alpha": rand(1, -0.5, 1.5)}
-    for grp in ("diffuse", "glossy"):
+    for grp in groups:
         pd[f"{grp}_direct"] = rand(3, -1.0, 20.0)
         pd[f"{grp}_indirect"] = rand(3, -1.0, 5.0)
         pd[f"{grp}_color"] = np.maximum(rand(3, -0.2, 1.0), 0.0)  # a fifth exactly 0
@@ -206,3 +209,91 @@ def test_argument_list_matches_the_c_entry_point(name):
     assert sum("const float*" in p for p in params) == n_in
     assert "-use_fast_math" not in " ".join(fused_ingest._build.NVCC_FLAGS)
     assert "__fdividef" not in src.split("#include")[1]
+
+
+# (h, w, tile, halo, multiple) of the joint plane cases: the whole frame
+# with border 32, a tiled grid whose rounding makes the bottom and right
+# pads larger than the halo, and a frame smaller than its pads (replicate)
+JOINT_GRIDS = {
+    "whole-border-32": ((45, 70, 0, 32, 8), "reflect"),
+    "tiled-rounded": ((45, 70, 16, 4, 4), "reflect"),
+    "replicate": ((20, 28, 0, 32, 8), "replicate"),
+}
+
+
+@pytest.mark.parametrize("aux", [("normal", "depth", "alpha"), ("alpha", "depth")], ids="+".join)
+@pytest.mark.parametrize("case", sorted(JOINT_GRIDS))
+def test_joint_plane_plain_form_is_the_padded_joint_encode(case, aux):
+    """encode_joint_plane on the CPU is pad_plane(encode_joint_inputs(...))
+    exactly, and at fp32 the JAX package's pad_plane of its
+    encode_joint_inputs; the plane's border follows tiled.plane_pads."""
+    (h, w, tile, halo, multiple), mode = JOINT_GRIDS[case]
+    groups = passes.LIGHT_GROUPS
+    pd = _raw_passes((h, w), seed=h + len(aux), groups=groups)
+    td = {k: torch.from_numpy(v) for k, v in pd.items()}
+    grid = tiled.plan_grid(h, w, tile, halo, multiple)
+    top, bottom, left, right, got_mode = tiled.plane_pads(grid)
+    assert got_mode == mode and (top, left) == (grid.halo, grid.halo)
+    if case == "tiled-rounded":
+        assert bottom > grid.halo and right > grid.halo
+    fused_ingest.reset_launches()
+    got = fused_ingest.encode_joint_plane(td, grid, groups, aux)
+    assert fused_ingest.joint_encode_launches == 0  # CPU tensors launch nothing
+    c = transforms.joint_input_channels(groups, aux)
+    assert tuple(got.shape) == (*tiled.plane_hw(grid), c) == (top + h + bottom, left + w + right, c)
+    torch.testing.assert_close(
+        got, tiled.pad_plane(transforms.encode_joint_inputs(td, groups, aux), grid), atol=0, rtol=0)
+    torch.testing.assert_close(got[top : top + h, left : left + w],
+                               transforms.encode_joint_inputs(td, groups, aux), atol=0, rtol=0)
+    jgrid = jtiled.plan_grid(h, w, tile, halo, multiple)
+    want = jtiled.pad_plane(
+        jtransforms.encode_joint_inputs({k: jnp.asarray(v) for k, v in pd.items()}, groups, aux),
+        jgrid)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+
+
+def test_joint_kernel_entry_refuses_cpu_tensors_and_other_dtypes():
+    groups = passes.LIGHT_GROUPS
+    td = {k: torch.from_numpy(v) for k, v in _raw_passes((8, 8), groups=groups).items()}
+    grid = tiled.plan_grid(8, 8, 0, 4, 4)
+    fused_ingest.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_ingest.launch_joint_cuda(td, grid, groups)
+    with pytest.raises(TypeError, match="fp32"):
+        fused_ingest.launch_joint_cuda({k: v.double() for k, v in td.items()}, grid, groups)
+    with pytest.raises(TypeError, match="fp32"):
+        fused_ingest.encode_joint_plane({k: v.to(torch.bfloat16) for k, v in td.items()}, grid)
+    with pytest.raises(ValueError, match="want"):
+        fused_ingest.encode_joint_plane(td, tiled.plan_grid(8, 9, 0, 4, 4))
+    with pytest.raises(ValueError, match="tensors on"):
+        fused_ingest.encode_joint_plane({**td, "depth": td["depth"].to("meta")}, grid)
+    with pytest.raises(ValueError, match="light groups"):
+        fused_ingest.encode_joint_plane(td, grid, groups + ("diffuse",))
+    with pytest.raises(KeyError, match="unknown aux"):
+        fused_ingest.encode_joint_plane(td, grid, groups, ("normal", "emission"))
+    assert fused_ingest.joint_encode_launches == 0
+    assert sum(fused_ingest.launches.values()) == 0
+
+
+def test_joint_argument_list_matches_the_c_entry_point():
+    """ctypes passes what argtypes say; a list that disagrees with the CUDA
+    source's signature would corrupt the call on the card, and a pointer
+    passed as a 32-bit int is cut silently."""
+    src = (REPO / "deepdenoiser_tpu_torch" / "csrc" / "fused_ingest.cu").read_text()
+    m = re.search(r'extern "C" int ' + fused_ingest._JOINT_ENTRY + r"\((.*?)\)\s*\{", src, re.S)
+    assert m, fused_ingest._JOINT_ENTRY
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    ctype = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong,
+             "float": ctypes.c_float}
+    kinds = ["ptr" if "*" in p else p.rsplit(" ", 1)[0] for p in params]
+    assert [ctype[k] for k in kinds] == list(fused_ingest._JOINT_ARGTYPES), params
+    names = [p.rsplit(" ", 1)[1].lstrip("*") for p in params]
+    assert names == ["group_ptrs", "groups", "normal", "depth", "alpha", "out", "height", "width",
+                     "top", "bottom", "left", "right", "reflect", "off_normal", "off_depth",
+                     "off_alpha", "eps", "stream"]
+    # the aux pointers and offsets go in passes.AUX_PASSES order, as the wrapper sends them
+    assert tuple(names[2:5]) == passes.AUX_PASSES
+    assert tuple(n.removeprefix("off_") for n in names[13:16]) == passes.AUX_PASSES
+    # the pads in the order tiled.plane_pads gives them
+    assert names[8:12] == ["top", "bottom", "left", "right"]
+    assert f"constexpr int MAX_JOINT_GROUPS = {fused_ingest.JOINT_CAPACITY};" in src

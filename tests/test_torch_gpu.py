@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from deepdenoiser_tpu_torch import config, passes, transforms, weights_io
 from deepdenoiser_tpu_torch.data import exr, mc_tracer, synthetic, synthetic_device
 from deepdenoiser_tpu_torch.data.draws import seeded
-from deepdenoiser_tpu_torch.inference import pipeline
+from deepdenoiser_tpu_torch.inference import pipeline, tiled
 from deepdenoiser_tpu_torch.models import factory, kpn, layers
 from deepdenoiser_tpu_torch.ops import bias_act, fused_ingest, kpn_apply, kpn_softmax, metrics
 
@@ -424,6 +424,175 @@ def test_flagship_max_group_frame_on_the_card_matches_the_cpu_port(cuda):
     for name, ref in want.items():
         err = (got[name].cpu() - ref).abs().max()
         assert err <= 1e-4 * ref.abs().max(), (name, float(err))
+
+
+# --------------------------------------------------------------------------
+# the joint encode into the padded plane
+# --------------------------------------------------------------------------
+
+def _bits_equal(got, want) -> bool:
+    """The same shape, NaN where the other has NaN, and every other element
+    the same 32 bits."""
+    if got.shape != want.shape:
+        return False
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)
+                and torch.equal(got.view(torch.int32)[~nan], want.view(torch.int32)[~nan]))
+
+
+def _joint_passes(h, w, dev, seed=0, bad=True):
+    """Every group's passes and the aux passes, reaching every clamp; with
+    `bad`, pixel (1, 2), mirrored into the border, is NaN in every pass and
+    pixel (h - 2, w - 1) +inf in every pass but the albedos."""
+    pd = _all_groups(_raw_passes((h, w), dev, seed=seed))
+    if bad:
+        for k, v in pd.items():
+            v = pd[k] = v.clone()
+            v[1, 2] = float("nan")
+            if not k.endswith("_color"):
+                v[h - 2, w - 1] = float("inf")
+    return pd
+
+
+JOINT_PLANS = {  # (model preset, infer overrides, frame)
+    "kpn-hq-1080p": ("kpn-hq", {}, (1080, 1920)),
+    "kpn-hq-4k-tile-512": ("kpn-hq", dict(tile=512, tile_batch=8), (2160, 3840)),
+    "odd-replicate": ("kpn-hq", dict(border=40), (37, 53)),
+}
+
+
+@pytest.mark.parametrize("plan", sorted(JOINT_PLANS))
+def test_joint_encode_kernel_is_bit_equal_to_the_plain_plane(cuda, plan):
+    """One launch writes pad_plane(encode_joint_inputs(...)) bit for bit at
+    the 1080p whole-frame plan (1144x1984), the 4K tile-512 plan (2704x4240,
+    bottom and right pads past the halo) and a small odd frame in replicate
+    mode; a NaN and a +inf pixel of the inputs come out as the plain chain
+    gives them, in the frame and in the border."""
+    preset, infer_kw, (h, w) = JOINT_PLANS[plan]
+    cfg = config.validate_channels(config.PRESETS[preset])
+    grid = pipeline.plan_for(cfg.model, dataclasses.replace(cfg.infer, **infer_kw), h, w)
+    mode = tiled.plane_pads(grid)[4]
+    assert mode == ("replicate" if plan == "odd-replicate" else "reflect")
+    pd = _joint_passes(h, w, cuda, seed=h)
+    groups, aux = passes.LIGHT_GROUPS, passes.AUX_PASSES
+    fused_ingest.reset_launches()
+    got = fused_ingest.encode_joint_plane(pd, grid, groups, aux)
+    assert fused_ingest.joint_encode_launches == 1 and sum(fused_ingest.launches.values()) == 0
+    want = tiled.pad_plane(transforms.encode_joint_inputs(pd, groups, aux), grid)
+    torch.cuda.synchronize()
+    assert got.shape == (*tiled.plane_hw(grid), 41) and got.is_contiguous()
+    assert _bits_equal(got, want)
+    assert bool(torch.isnan(got).any()) and bool(torch.isinf(got).any())
+
+
+@pytest.mark.parametrize("aux", [*AUX_SUBSETS, ("alpha", "depth", "normal")], ids=str)
+@pytest.mark.parametrize("n_groups", [1, 2, 3, 4])
+def test_joint_encode_kernel_takes_every_group_count_and_aux_subset(cuda, n_groups, aux):
+    """Each aux template of the kernel and each group count, in the caller's
+    aux order, on a ragged frame whose last block is short."""
+    pd = _joint_passes(29, 45, cuda, seed=n_groups)
+    groups = passes.LIGHT_GROUPS[:n_groups]
+    grid = tiled.plan_grid(29, 45, 0, 6, 2)  # a 42x58 plane: 2436 pixels
+    fused_ingest.reset_launches()
+    got = fused_ingest.encode_joint_plane(pd, grid, groups, aux)
+    assert fused_ingest.joint_encode_launches == 1
+    want = tiled.pad_plane(transforms.encode_joint_inputs(pd, groups, aux), grid)
+    torch.cuda.synchronize()
+    assert (got.numel() // got.shape[-1]) % 256 != 0
+    assert _bits_equal(got, want)
+
+
+def test_joint_encode_kernel_refuses_other_dtypes_and_mixed_devices(cuda):
+    pd = _joint_passes(16, 24, cuda, bad=False)
+    grid = tiled.plan_grid(16, 24, 0, 8, 8)
+    with pytest.raises(TypeError, match="fp32"):
+        fused_ingest.launch_joint_cuda({k: v.half() for k, v in pd.items()}, grid)
+    with pytest.raises(ValueError, match="tensors on"):
+        fused_ingest.launch_joint_cuda({**pd, "depth": pd["depth"].cpu()}, grid)
+    fused_ingest.reset_launches()
+    sliced = {k: torch.stack([v, v], 2)[:, :, 0] for k, v in pd.items()}  # strided views
+    assert not any(v.is_contiguous() for v in sliced.values())
+    got = fused_ingest.launch_joint_cuda(sliced, grid)
+    assert fused_ingest.joint_encode_launches == 1
+    assert _bits_equal(got, tiled.pad_plane(transforms.encode_joint_inputs(pd), grid))
+
+
+JOINT_FRAMES = {  # preset, infer overrides, frame scale
+    "kpn-hq-1080p": ("kpn-hq", {}, 1),
+    "tiramisu-lt1-1080p": ("tiramisu-lt1", {}, 1),
+    "kpn-hq-4k-tile-512": ("kpn-hq", dict(tile=512, tile_batch=8), 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(JOINT_FRAMES))
+def test_joint_frames_launch_one_encode_and_equal_the_plain_route(cuda, fourier_1080p, case):
+    """A release joint frame (bf16) through make_joint_frame_denoiser: one
+    joint-encode launch a frame, the network on the kernel's plane, and
+    every output pass equal to the same frame through the plain encode and
+    frame_fn (the 4K frame: the 1080p frame mirrored 2x2, in lazy chunks)."""
+    preset, infer_kw, scale = JOINT_FRAMES[case]
+    cfg = config.validate_channels(config.PRESETS[preset])
+    noisy = fourier_1080p["noisy"]
+    if scale == 2:
+        noisy = {k: _mirror_2x2(v) for k, v in noisy.items()}
+    h, w = FRAME[0] * scale, FRAME[1] * scale
+    den, _ = pipeline.make_joint_frame_denoiser(
+        cfg.model, dataclasses.replace(cfg.infer, **infer_kw), h, w, _release_params(preset))
+    assert den.on_plane is not None
+    fused_ingest.reset_launches()
+    tiled.reset_net_calls()
+    got = den(noisy)
+    torch.cuda.synchronize()
+    assert fused_ingest.joint_encode_launches == 1
+    net_calls = tiled.net_calls
+    den.on_plane = None
+    want = den(noisy)
+    torch.cuda.synchronize()
+    assert fused_ingest.joint_encode_launches == 1 and tiled.net_calls == 2 * net_calls
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def _banded_kpn_hq(h, w):
+    from deepdenoiser_tpu_torch.parallel import mesh
+
+    cfg = config.validate_channels(config.PRESETS["kpn-hq"])
+    icfg = dataclasses.replace(cfg.infer, spatial_shard=True)
+    return pipeline.make_joint_frame_denoiser(
+        cfg.model, icfg, h, w, _release_params("kpn-hq"),
+        mesh=mesh.make_mesh(2, "spatial", devices=["cuda"] * 2))[0]
+
+
+def _flags_frame(h, w):
+    cfg = config.validate_channels(config.PRESETS["flagship-flags"])
+    return pipeline.make_joint_frame_denoiser(
+        cfg.model, cfg.infer, h, w, _seeded_params(cfg.model), groups=tuple(cfg.data.groups),
+        use_flags=True)[0]
+
+
+def _scaled_kpn_hq(h, w):
+    cfg = config.validate_channels(config.PRESETS["kpn-hq"])
+    return pipeline.make_joint_frame_denoiser(
+        cfg.model, cfg.infer, h, w, _release_params("kpn-hq"),
+        scales={"radiance": 0.7, "depth": 0.25})[0]
+
+
+@pytest.mark.parametrize("make", [_banded_kpn_hq, _flags_frame, _scaled_kpn_hq],
+                         ids=["band-parallel", "use_flags", "scales"])
+def test_joint_frames_the_kernel_cannot_serve_keep_the_plain_encode(cuda, make):
+    """Band-parallel frames (the bands pad by themselves), flag planes and
+    scaled encodes run the plain encode: no joint-encode launch, a finite
+    frame."""
+    h, w = 160, 96
+    noisy = synthetic.add_mc_noise(synthetic.generate_clean_passes(h, w, seed=5), spp=4, seed=6)
+    den = make(h, w)
+    assert den.on_plane is None
+    fused_ingest.reset_launches()
+    out = den({k: torch.from_numpy(v) for k, v in noisy.items()})
+    torch.cuda.synchronize()
+    assert fused_ingest.joint_encode_launches == 0
+    assert all(torch.isfinite(v).all() for v in out.values())
 
 
 # --------------------------------------------------------------------------

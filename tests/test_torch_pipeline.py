@@ -176,3 +176,38 @@ def test_cli_denoise_passes_writes_every_output(frame, tmp_path):
     assert set(got) == set(want)
     for name, ref in want.items():
         np.testing.assert_array_equal(got[name], ref, err_msg=name)
+
+
+def test_joint_frame_writes_the_plane_in_one_kernel_only_where_it_can(frame):
+    """The joint encode kernel's route is taken for passes on the card with
+    no scales and no flag planes, through a frame function that runs on a
+    padded plane (the tile grid's, whole or in lazy chunks); the CPU,
+    scales, flags and the band-parallel frame function (which pads by
+    itself) keep the plain encode. The kernel's route, run here with the
+    wrapper's plain form, gives the plain route's frame exactly."""
+    from deepdenoiser_tpu_torch.inference import tiled
+    from deepdenoiser_tpu_torch.parallel import mesh
+
+    _, noisy = frame
+    cfg = config.validate_channels(config.PRESETS["kpn-hq"])
+    icfg = dataclasses.replace(cfg.infer, compute_dtype="float32")
+    params = weights_io.load_release_params(_weights("kpn-hq"))
+    den, grid = pipeline.make_joint_frame_denoiser(cfg.model, icfg, H, W, params, device="cpu")
+    assert den.on_plane is None
+    cuda, f = torch.device("cuda"), den.frame_fn
+    assert pipeline._plane_entry(f, cuda, None, False) is f.on_plane
+    assert pipeline._plane_entry(f, cuda, {"depth": 0.5}, False) is None
+    assert pipeline._plane_entry(f, cuda, None, True) is None
+    lazy = tiled.make_tiled_apply(den.model, tiled.plan_grid(H, W, 32, 16, 8), 24, tile_batch=2)
+    assert pipeline._plane_entry(lazy, cuda, None, False) is lazy.on_plane
+    bands = pipeline._frame_fn(den.model, grid, dataclasses.replace(icfg, spatial_shard=True), 24,
+                               mesh=mesh.make_mesh(2, "spatial", devices=["cpu"] * 2),
+                               multiple=factory.spatial_multiple(cfg.model))
+    assert pipeline._plane_entry(bands, cuda, None, False) is None
+    td = {k: torch.from_numpy(v) for k, v in noisy.items()}
+    want = den(td)
+    den.on_plane = f.on_plane
+    got = den(td)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

@@ -236,6 +236,40 @@ def test_lazy_chunks_wrap_around_and_feather_is_refused_there():
         tiled.make_tiled_apply(net, grid, 3)(frame[None])
 
 
+@pytest.mark.parametrize("kw,batch", [
+    (dict(), 0), (dict(tile=16), 0), (dict(tile=16, tile_batch=4), 0),
+    (dict(tile=16, tile_batch=5), 1),
+], ids=["whole", "tiled", "lazy-chunks", "batched-chunks"])
+def test_on_plane_runs_the_padded_plane_as_the_frame_form_does(kw, batch):
+    """f.on_plane(pad_plane(frame)) is f(frame), network calls included, in
+    the whole-frame, tiled, lazy-chunk and batched forms; a plane of
+    another size is refused."""
+    grid = tiled.plan_grid(50, 70, kw.get("tile", 0), 8, 8)
+    frame = torch.from_numpy(_frame(9, *(2,) * batch, 50, 70, 3))
+    calls = []
+
+    def net(t):
+        calls.append(t.shape[0])
+        return t[..., :2] * 3 - 1
+
+    f = tiled.make_tiled_apply(net, grid, 2, tile_batch=kw.get("tile_batch", 0), batch_dims=batch)
+    tiled.reset_net_calls()
+    want = f(frame)
+    n_want, c_want = tiled.net_calls, list(calls)
+    plane = tiled.pad_plane(frame, grid)
+    assert tuple(plane.shape[-3:-1]) == tiled.plane_hw(grid)
+    calls.clear()
+    tiled.reset_net_calls()
+    got = f.on_plane(plane)
+    assert tiled.net_calls == n_want and calls == c_want
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    torch.testing.assert_close(want, frame[..., :2] * 3 - 1, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="plane"):
+        f.on_plane(plane[..., 1:, :, :])
+    with pytest.raises(ValueError, match="plane"):
+        f.on_plane(frame)
+
+
 @pytest.mark.parametrize("kw", [
     dict(stem_stride=2),                      # the flagship's stem
     dict(n_scales=2, depth=1),                # multi-scale composition

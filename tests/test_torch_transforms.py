@@ -134,6 +134,31 @@ def test_pad_plane_and_crop_match_jax(noisy, hw, halo, multiple):
     np.testing.assert_allclose(crop.numpy(), 2 * frame, atol=ATOL)
 
 
+@pytest.mark.parametrize(
+    "hw,tile,halo,multiple,mode",
+    [((20, 28), 0, 8, 8, "reflect"), ((20, 28), 0, 32, 8, "replicate"),
+     ((37, 53), 0, 4, 4, "reflect"), ((37, 53), 16, 4, 4, "reflect"),
+     ((37, 53), 16, 40, 8, "replicate")],
+    ids=["reflect", "edge", "ragged", "tiled", "tiled-edge"],
+)
+def test_plane_pads_are_the_border_pad_plane_and_jax_apply(hw, tile, halo, multiple, mode):
+    """tiled.plane_pads, the one rule of the plane's border that pad_plane and
+    the joint encode kernel share: the JAX package's pads and mode
+    (np.pad's reflect is PyTorch's, the edge pixel not repeated; edge is
+    replicate)."""
+    h, w = hw
+    frame = np.random.default_rng(h + tile).standard_normal((h, w, 5)).astype(np.float32)
+    grid = tiled.plan_grid(h, w, tile, halo, multiple)
+    top, bottom, left, right, got_mode = tiled.plane_pads(grid)
+    assert got_mode == mode
+    want = np.pad(frame, ((top, bottom), (left, right), (0, 0)),
+                  mode="reflect" if mode == "reflect" else "edge")
+    assert want.shape[:2] == tiled.plane_hw(grid)
+    np.testing.assert_array_equal(tiled.pad_plane(torch.from_numpy(frame), grid).numpy(), want)
+    jgrid = jtiled.plan_grid(h, w, tile, halo, multiple)
+    np.testing.assert_array_equal(np.asarray(jtiled.pad_plane(jnp.asarray(frame), jgrid)), want)
+
+
 @pytest.mark.parametrize("preset", ["kpn-hq", "flagship-hq"])
 @pytest.mark.parametrize("hw", [(1080, 1920), (64, 96), (2160, 3840)])
 def test_plan_for_matches_jax(preset, hw):
