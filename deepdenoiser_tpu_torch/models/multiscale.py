@@ -9,6 +9,13 @@ scale, and the coarse-to-fine composition
 
 in which the coarse prediction replaces the low-frequency band of the finer
 one. All tensors are NHWC, as the backbones take and return them.
+
+Spans (tracing.py), inside the model's `backbone` span: `pyramid` around
+the input pyramid's pools, `scale` around each backbone run, `compose`
+around each composition step. The module-level counts `backbone_calls`
+(one a backbone run) and `glue_bytes` (the bytes the pyramid's pools and
+the composition steps write, from the shapes on the host) advance with
+every call; `reset_counts()` zeroes them.
 """
 
 from __future__ import annotations
@@ -17,16 +24,35 @@ from typing import Callable, List, Optional, Union
 
 import torch
 
+from deepdenoiser_tpu_torch import tracing
 from deepdenoiser_tpu_torch.models import layers
 from deepdenoiser_tpu_torch.models.layers import RFState
 
 Tensor = torch.Tensor
 
+# backbone runs since the last reset, and the bytes the pyramid's pools and
+# the composition steps wrote (plain counts; added where each op is called)
+backbone_calls = 0
+glue_bytes = 0
+
+
+def reset_counts() -> None:
+    global backbone_calls, glue_bytes
+    backbone_calls = glue_bytes = 0
+
+
+def _written(t: Tensor) -> Tensor:
+    """`t`, after counting the bytes it holds as written: no device work."""
+    global glue_bytes
+    glue_bytes += t.numel() * t.element_size()
+    return t
+
 
 def compose_scales(fine_pred: Tensor, coarse_out: Tensor) -> Tensor:
     """fine + up(coarse - down(fine)): swap in the coarse low band."""
-    down_fine = layers.avg_downsample(fine_pred, 2)
-    return fine_pred + layers.nearest_upsample(coarse_out - down_fine, 2)
+    down_fine = _written(layers.avg_downsample(fine_pred, 2))
+    up = _written(layers.nearest_upsample(_written(coarse_out - down_fine), 2))
+    return _written(fine_pred + up)
 
 
 class MultiScale:
@@ -45,14 +71,21 @@ class MultiScale:
         self.backbone, self.n_scales = backbone, n_scales
 
     def __call__(self, x: Tensor, return_scales: bool = False) -> Union[Tensor, List[Tensor]]:
+        global backbone_calls
         pyramid: List[Tensor] = [x]
-        for _ in range(self.n_scales - 1):
-            pyramid.append(layers.avg_downsample(pyramid[-1], 2))
-        preds = [self.backbone(lvl) for lvl in pyramid]
+        with tracing.span("pyramid"):
+            for _ in range(self.n_scales - 1):
+                pyramid.append(_written(layers.avg_downsample(pyramid[-1], 2)))
+        preds = []
+        for lvl in pyramid:
+            with tracing.span("scale"):
+                preds.append(self.backbone(lvl))
+            backbone_calls += 1
         out = preds[-1]
         composed = [out]  # coarsest first
         for s in range(self.n_scales - 2, -1, -1):
-            out = compose_scales(preds[s], out)
+            with tracing.span("compose"):
+                out = compose_scales(preds[s], out)
             composed.append(out)
         if return_scales:
             return composed[::-1]  # finest -> coarsest

@@ -32,6 +32,12 @@ The spans, by where they are opened:
   transition  models/tiramisu.Tiramisu.forward, inside `backbone`: each
             transition down (1x1 conv, average pool) and each transition
             up (resize-conv, the [up, skip] join or its 1x1 compression)
+  pyramid   models/multiscale.MultiScale.__call__, inside `backbone`: the
+            input pyramid's 2x2 average pools
+  scale     the same, inside `backbone`: each run of the shared backbone,
+            finest scale first
+  compose   the same, inside `backbone`: each coarse-to-fine composition
+            step, out_s = pred_s + up(out_(s+1) - down(pred_s))
   head      models/factory.DenoiserModel.forward: the rest of the model,
             the KPN head with its signal gather (or the residual add)
   k1        models/kpn.KernelPredictionHead.forward: each filter apply
@@ -42,8 +48,9 @@ The benchmark's `h100_bench/spans.py` reads them all: it attributes
 each device operation to the innermost span whose host interval holds
 its launch event, and reads a layer's device time as the time of the
 operations whose innermost span it is (`encode_ms`, `plane_ms` from
-`net`, `backbone_ms`, `dense_ms`, `head_ms`, `decode_ms`, K1's from
-`k1`), and the host's dispatch time of a frame from `frame`.
+`net`, `backbone_ms`, `dense_ms`, `pyramid_ms`, `compose_ms`, `head_ms`,
+`decode_ms`, K1's from `k1`), and the host's dispatch time of a
+frame from `frame`.
 """
 
 from __future__ import annotations

@@ -31,7 +31,7 @@ from deepdenoiser_tpu_torch import config, passes, transforms, weights_io
 from deepdenoiser_tpu_torch.data import exr, mc_tracer, synthetic, synthetic_device
 from deepdenoiser_tpu_torch.data.draws import seeded
 from deepdenoiser_tpu_torch.inference import pipeline, tiled
-from deepdenoiser_tpu_torch.models import factory, kpn, layers
+from deepdenoiser_tpu_torch.models import factory, kpn, layers, multiscale
 from deepdenoiser_tpu_torch.ops import bias_act, fused_ingest, kpn_apply, kpn_softmax, metrics
 
 import torch_flips  # noqa: E402  (tests/, on the path of every test module)
@@ -1692,17 +1692,42 @@ def test_tiled_frame_at_full_size_equals_the_whole_frame_on_the_card(cuda, fouri
 
 
 def test_multiscale_frame_on_the_card(cuda, fourier_1080p):
-    """unet-multiscale (no release weights: seeded ones) in fp32: its base
-    UNet's epilogues at three scales, a finite 1080p frame."""
-    cfg = config.validate_channels(config.PRESETS["unet-multiscale"])
-    icfg = dataclasses.replace(cfg.infer, compute_dtype="float32")
-    den, _ = pipeline.make_joint_frame_denoiser(cfg.model, icfg, *FRAME, _seeded_params(cfg.model))
+    """unet-multiscale at its bf16 on the benchmark's seeded weights (it has
+    no release file) over a 1080p frame: its base UNet's epilogues at
+    three scales, three backbone runs, and every pass within the cell
+    unet-multiscale.1080p's `rel_l2` limit of the plain float32 reference
+    (h100_bench/reference/multiscale.py), planed as the benchmark's frames
+    driver planes it: the halo rounded to the pyramid's multiple, one band."""
+    from h100_bench.reference import frame as ref_frame
+    from h100_bench.reference import multiscale as ref_ms
+    from h100_bench.reference import no_tf32
+
+    bench = REPO / "h100_bench"
+    d = json.loads((bench / "configs" / "unet-multiscale.json").read_text())
+    weights = REPO / d.pop("bench")["weights"]
+    limit = json.loads((bench / "workloads" / "unet-multiscale.1080p.json").read_text())
+    cfg = config.from_dict(config.ExperimentConfig, d)
+    assert cfg.model.compute_dtype == cfg.infer.compute_dtype == "bfloat16"
+    den, _ = pipeline.make_joint_frame_denoiser(cfg.model, cfg.infer, *FRAME,
+                                                weights_io.load_release_params(weights))
+    frame = fourier_1080p["noisy"]
+    multiscale.reset_counts()
     _reset_launches()
-    out = den(fourier_1080p["noisy"])
+    out = den(frame)
     torch.cuda.synchronize()
     _expect_launches(bias_act=EPILOGUES["unet-multiscale"])
-    assert out["combined"].shape == (*FRAME, 3)
-    assert all(torch.isfinite(v).all() for v in out.values())
+    assert multiscale.backbone_calls == 3
+    model, cert = d["model"], ref_ms.halo(d["model"])
+    m = 2 ** model["depth"]
+    halo = ref_frame.plane_halo(d["infer"], cert, m)
+    p = ref_ms.to_device(ref_ms.load_params(weights), cuda)
+    with no_tf32():
+        want = ref_frame.denoise(lambda x: ref_ms.network(p, x, model), frame, "joint", halo,
+                                 -(-cert // m) * m, m, limit["check"]["band_rows"])
+    assert len(want) == 9 and out["combined"].shape == (*FRAME, 3)
+    for k, r in want.items():
+        gap = float((out[k].double() - r.double()).norm() / r.double().norm())
+        assert gap <= limit["limits"]["rel_l2"], (k, gap)
 
 
 def test_flags_frame_without_a_group_on_the_card(cuda, fourier_1080p):
