@@ -40,6 +40,29 @@
 //   - z and out are 16 B aligned (a fresh allocation is; the wrapper
 //     refuses other addresses); the elements after the last whole vector
 //     are done by the last block.
+//
+// The sub-pixel instantiation (SUBPIXEL) is the epilogue of the decoder's
+// resize-conv (models/layers.py, UpSample): nearest-resize x2 and a 3x3
+// SAME conv, run as a 2x2 conv with padding 1 and 4F outputs on the coarse
+// (H, W) grid. Its z is that conv's (N, 4F, H+1, W+1) output, channels-last;
+// the kernel writes a new (N, F, 2H, 2W) channels-last tensor:
+//
+//   out[n, f, 2i+r, 2j+q] = act(round(z[n, (2r+q)F + f, i+r, j+q] + b[f]))
+//
+// so it interleaves the four output phases as it adds the bias, and the
+// full-resolution phase shuffle (depth_to_space) never runs on its own.
+// Each thread walks z as the plain kernel does, and stores to the phase's
+// place: z pixel (a, b), channel block 2r + q, goes to output pixel
+// (2a - r, 2b - q); the blocks of the border that no output pixel has
+// (row 0's r = 1, row H's r = 0, and so for the columns) are neither read
+// nor written. The three divisions of the index are multiplies with magic
+// numbers made on the host. So the reads run along z as in the plain kernel,
+// and the stores of a z row run along two output rows, 2a - 1 and 2a. A
+// phase's F channels are one contiguous run of both tensors, so where F is
+// a multiple of a vector (16 B) every vector is one 16 B load and one 16 B
+// store; other F take one element a load. It reads 4HWF elements of z and
+// writes as many: the bytes of the plain kernel on the full-resolution conv
+// output it replaces.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -154,31 +177,76 @@ __device__ __forceinline__ void apply(Pack<T, V>& p, unsigned e, const float* sb
   }
 }
 
-template <typename T, int ACT, bool PLANAR, int V>
+// n / d for n < 2**31 as a multiply-high, an add and a shift, with the
+// divisor's magic number made on the host (PyTorch's IntDivider)
+struct Divider {
+  unsigned d, m, s;
+  __device__ __forceinline__ unsigned div(unsigned n) const { return (__umulhi(n, m) + n) >> s; }
+};
+
+Divider divider(unsigned d) {
+  unsigned s = 0;
+  while ((1U << s) < d) ++s;
+  const uint64_t m = ((uint64_t{1} << 32) * ((uint64_t{1} << s) - d)) / d + 1;
+  return Divider{d, static_cast<unsigned>(m), s};
+}
+
+// SUBPIXEL: vectors a phase's run of F channels, and the phase tensor's
+// columns (W+1) and rows (H+1)
+struct Phases {
+  Divider vectors, wz, hz;
+};
+
+constexpr unsigned NOWHERE = 0xffffffffu;
+
+// where vector i of z goes in the output: i itself, or for SUBPIXEL its
+// phase's pixel, vector (n, 2a-r, 2b-q, f) of the output for vector (n, a,
+// b, 2r+q, f) of z; NOWHERE for the border phases that no output pixel has
+template <bool SUBPIXEL>
+__device__ __forceinline__ unsigned destination(unsigned i, const Phases& g) {
+  if constexpr (SUBPIXEL) {
+    const unsigned run = g.vectors.div(i), f = i - run * g.vectors.d;
+    const unsigned pixel = run >> 2, r = (run >> 1) & 1, q = run & 1;
+    const unsigned t = g.wz.div(pixel), b = pixel - t * g.wz.d;
+    const unsigned nb = g.hz.div(t), a = t - nb * g.hz.d;
+    const unsigned h2 = 2 * (g.hz.d - 1), w2 = 2 * (g.wz.d - 1);
+    const unsigned y = 2 * a - r, x = 2 * b - q;  // row -1 or column -1 wraps past h2, w2
+    if (y >= h2 || x >= w2) return NOWHERE;
+    return ((nb * h2 + y) * w2 + x) * g.vectors.d + f;
+  } else {
+    return i;
+  }
+}
+
+// n: z's elements; c the output's channels; hw its H*W (PLANAR); g the
+// phase tensor's shape (SUBPIXEL)
+template <typename T, int ACT, bool PLANAR, bool SUBPIXEL, int V>
 __global__ void __launch_bounds__(NT)
 bias_act_kernel(const T* z, const float* __restrict__ bias, T* out, unsigned n, unsigned c,
-                unsigned hw) {
+                unsigned hw, Phases g) {
   extern __shared__ float sb[];
   using P = Pack<T, V>;
   const unsigned nvec = n / V;
   const unsigned first = blockIdx.x * (NT * UNROLL) + threadIdx.x;
   P p[UNROLL];
+  unsigned to[UNROLL];
 #pragma unroll
   for (int u = 0; u < UNROLL; ++u) {
     const unsigned i = first + u * NT;
-    if (i < nvec) p[u] = load<T, V>(z, i);
+    to[u] = i < nvec ? destination<SUBPIXEL>(i, g) : NOWHERE;
+    if (to[u] != NOWHERE) p[u] = load<T, V>(z, i);
   }
   for (unsigned k = threadIdx.x; k < c; k += NT) sb[k] = round_to<T>(__ldg(bias + k));
   __syncthreads();
 #pragma unroll
   for (int u = 0; u < UNROLL; ++u) {
-    const unsigned i = first + u * NT;
-    if (i < nvec) {
-      apply<T, ACT, PLANAR, V>(p[u], i * V, sb, c, hw);
-      store<T, V>(out, i, p[u]);
+    if (to[u] != NOWHERE) {
+      apply<T, ACT, PLANAR, V>(p[u], to[u] * V, sb, c, hw);
+      store<T, V>(out, to[u], p[u]);
     }
   }
-  if (blockIdx.x == gridDim.x - 1) {
+  // a sub-pixel launch's vectors never straddle a phase's run, so it has no tail
+  if (!SUBPIXEL && blockIdx.x == gridDim.x - 1) {
     for (unsigned e = nvec * V + threadIdx.x; e < n; e += NT) {
       Pack<T, 1> one = load<T, 1>(z, e);
       apply<T, ACT, PLANAR, 1>(one, e, sb, c, hw);
@@ -187,37 +255,63 @@ bias_act_kernel(const T* z, const float* __restrict__ bias, T* out, unsigned n, 
   }
 }
 
-template <typename T, int ACT, bool PLANAR, int V>
-cudaError_t launch(const void* z, const float* bias, void* out, unsigned n, unsigned c,
-                   unsigned hw, cudaStream_t stream) {
+// where a launch writes: the layout of z and out
+enum Layout { CHANNELS_LAST = 0, PLANAR_NCHW = 1, PHASES = 2 };
+
+// n: z's elements; c the output's channels; hw its H*W; wz, hz the phase
+// tensor's columns and rows (W+1, H+1)
+struct Shape {
+  unsigned n, c, hw, wz, hz;
+};
+
+template <typename T, int ACT, bool PLANAR, bool SUBPIXEL, int V>
+cudaError_t launch(const void* z, const float* bias, void* out, Shape s, cudaStream_t stream) {
   const unsigned per_block = NT * UNROLL;
-  const unsigned blocks = n / V < per_block ? 1 : (n / V + per_block - 1) / per_block;
-  bias_act_kernel<T, ACT, PLANAR, V><<<blocks, NT, c * sizeof(float), stream>>>(
-      static_cast<const T*>(z), bias, static_cast<T*>(out), n, c, hw);
+  const unsigned blocks = s.n / V < per_block ? 1 : (s.n / V + per_block - 1) / per_block;
+  const Phases g{divider(SUBPIXEL ? s.c / V : 1), divider(s.wz), divider(s.hz)};
+  bias_act_kernel<T, ACT, PLANAR, SUBPIXEL, V><<<blocks, NT, s.c * sizeof(float), stream>>>(
+      static_cast<const T*>(z), bias, static_cast<T*>(out), s.n, s.c, s.hw, g);
   return cudaGetLastError();
 }
 
 template <typename T, int ACT>
-cudaError_t launch_layout(const void* z, const float* bias, void* out, bool planar, unsigned n,
-                          unsigned c, unsigned hw, cudaStream_t stream) {
+cudaError_t launch_layout(const void* z, const float* bias, void* out, int layout, Shape s,
+                          cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
-  return planar ? launch<T, ACT, true, V>(z, bias, out, n, c, hw, stream)
-                : launch<T, ACT, false, V>(z, bias, out, n, c, hw, stream);
-}
-
-template <typename T>
-cudaError_t launch_act(int act, const void* z, const float* bias, void* out, bool planar,
-                       unsigned n, unsigned c, unsigned hw, cudaStream_t stream) {
-  switch (act) {
-    case NONE: return launch_layout<T, NONE>(z, bias, out, planar, n, c, hw, stream);
-    case RELU: return launch_layout<T, RELU>(z, bias, out, planar, n, c, hw, stream);
-    case LEAKY_RELU: return launch_layout<T, LEAKY_RELU>(z, bias, out, planar, n, c, hw, stream);
-    case ELU: return launch_layout<T, ELU>(z, bias, out, planar, n, c, hw, stream);
-    case GELU: return launch_layout<T, GELU>(z, bias, out, planar, n, c, hw, stream);
-    case SILU: return launch_layout<T, SILU>(z, bias, out, planar, n, c, hw, stream);
+  switch (layout) {
+    case CHANNELS_LAST: return launch<T, ACT, false, false, V>(z, bias, out, s, stream);
+    case PLANAR_NCHW: return launch<T, ACT, true, false, V>(z, bias, out, s, stream);
+    case PHASES:
+      // a vector is one pixel's run of z only where it cannot straddle two
+      return s.c % V == 0 ? launch<T, ACT, false, true, V>(z, bias, out, s, stream)
+                          : launch<T, ACT, false, true, 1>(z, bias, out, s, stream);
     default: return cudaErrorInvalidValue;
   }
 }
+
+template <typename T>
+cudaError_t launch_act(int act, const void* z, const float* bias, void* out, int layout,
+                       Shape s, cudaStream_t stream) {
+  switch (act) {
+    case NONE: return launch_layout<T, NONE>(z, bias, out, layout, s, stream);
+    case RELU: return launch_layout<T, RELU>(z, bias, out, layout, s, stream);
+    case LEAKY_RELU: return launch_layout<T, LEAKY_RELU>(z, bias, out, layout, s, stream);
+    case ELU: return launch_layout<T, ELU>(z, bias, out, layout, s, stream);
+    case GELU: return launch_layout<T, GELU>(z, bias, out, layout, s, stream);
+    case SILU: return launch_layout<T, SILU>(z, bias, out, layout, s, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_dtype(int dtype, int act, const void* z, const float* bias, void* out,
+                         int layout, Shape s, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_act<float>(act, z, bias, out, layout, s, st);
+  if (dtype == 1) return launch_act<__nv_bfloat16>(act, z, bias, out, layout, s, st);
+  return cudaErrorInvalidValue;
+}
+
+bool aligned(const void* a) { return reinterpret_cast<uintptr_t>(a) % 16 == 0; }
 
 }  // namespace
 
@@ -230,19 +324,34 @@ cudaError_t launch_act(int act, const void* z, const float* bias, void* out, boo
 // or act return cudaErrorInvalidValue without launching.
 extern "C" int bias_act(const void* z, const float* bias, void* out, int dtype, int act,
                         int planar, long long n, int c, long long hw, void* stream) {
-  if (n < 1 || n > 0x7fffffffLL || c < 1 || c > MAX_C || hw < 1 || hw > n ||
-      reinterpret_cast<uintptr_t>(z) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+  if (n < 1 || n > 0x7fffffffLL || c < 1 || c > MAX_C || hw < 1 || hw > n || !aligned(z) ||
+      !aligned(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned un = static_cast<unsigned>(n), uc = static_cast<unsigned>(c),
-                 uhw = static_cast<unsigned>(hw);
-  if (dtype == 0) {
-    return static_cast<int>(launch_act<float>(act, z, bias, out, planar, un, uc, uhw, st));
+  const Shape s{static_cast<unsigned>(n), static_cast<unsigned>(c), static_cast<unsigned>(hw),
+                1, 1};
+  return static_cast<int>(
+      launch_dtype(dtype, act, z, bias, out, planar ? PLANAR_NCHW : CHANNELS_LAST, s, stream));
+}
+
+// The sub-pixel epilogue: z a channels-last (N, 4c, h+1, w+1) phase tensor,
+// out a new channels-last (N, c, 2h, 2w) tensor (not z), n = N*c*4*h*w
+// its elements. Launches on `stream` and returns cudaGetLastError() after
+// the launch. z's elements or n outside 1..2**31-1, c outside 1..12288, h
+// or w < 1, n not a whole number of output images, z or out not 16 B
+// aligned, or an unknown dtype or act return cudaErrorInvalidValue without
+// launching.
+extern "C" int bias_act_subpixel(const void* z, const float* bias, void* out, int dtype, int act,
+                                 long long n, int c, long long h, long long w, void* stream) {
+  if (c < 1 || c > MAX_C || h < 1 || w < 1 || n < 1 || n > 0x7fffffffLL || !aligned(z) ||
+      !aligned(out)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 1) {
-    return static_cast<int>(
-        launch_act<__nv_bfloat16>(act, z, bias, out, planar, un, uc, uhw, st));
+  const long long image = 4LL * h * w * c, nz = (n / image) * (h + 1) * (w + 1) * 4 * c;
+  if (n % image != 0 || nz > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Shape s{static_cast<unsigned>(nz), static_cast<unsigned>(c), 1,
+                static_cast<unsigned>(w + 1), static_cast<unsigned>(h + 1)};
+  return static_cast<int>(launch_dtype(dtype, act, z, bias, out, PHASES, s, stream));
 }

@@ -14,10 +14,14 @@ Three details carry the JAX semantics across:
   * the decoder's concat-free join in JAX splits the first conv's input
     channels as [upsampled, skip]; here the two are concatenated in that
     order and one conv runs.
-The JAX UpSample is a sub-pixel conv at low resolution; nearest-up(2)
-then a 3x3 SAME conv with the same kernel is the same function, and that
-is the form used here. nearest_upsample and avg_downsample are the NHWC
-helpers of the multi-scale pyramid.
+UpSample's nearest-up(2) then 3x3 SAME conv runs, as in the JAX package,
+as a sub-pixel conv on the coarse grid: a 2x2 conv with padding 1 and 4F
+outputs, its kernel folded from the 3x3 one (`fold_subpixel`), whose
+epilogue (ops/bias_act.bias_act_subpixel) interleaves the four output
+phases as it adds the bias. The full-resolution resized input is never
+built. Other kernels and factors resize, then convolve.
+nearest_upsample and avg_downsample are the NHWC helpers of the
+multi-scale pyramid.
 
 space_to_depth / depth_to_space are NHWC like the JAX functions and keep
 their channel order, (dy*f + dx)*C + c, which is not F.pixel_unshuffle's
@@ -188,24 +192,62 @@ class DownSample(nn.Module):
         return self.ConvBlock_0(x)
 
 
+def fold_subpixel(w: Tensor) -> Tensor:
+    """A (F, C, 3, 3) kernel of nearest-up(2) then a 3x3 SAME conv, folded
+    into the (4F, C, 2, 2) kernel of the same function on the coarse grid,
+    run with padding 1: per axis, output parity 0 reads coarse offsets
+    {-1, 0} with taps {k0, k1 + k2}, parity 1 reads {0, +1} with {k0 + k1,
+    k2}; output channel block (2r + q)F holds phase (r, q), at position
+    (i + r, j + q) for coarse pixel (i, j). The zero SAME border comes out
+    exact. Slice sums in w's dtype (no matmul, so TF32 never enters)."""
+    rows = (torch.stack((w[:, :, 0], w[:, :, 1] + w[:, :, 2]), dim=2),
+            torch.stack((w[:, :, 0] + w[:, :, 1], w[:, :, 2]), dim=2))
+    blocks = []
+    for k in rows:
+        blocks.append(torch.stack((k[..., 0], k[..., 1] + k[..., 2]), dim=-1))
+        blocks.append(torch.stack((k[..., 0] + k[..., 1], k[..., 2]), dim=-1))
+    return torch.cat(blocks, dim=0)
+
+
 class UpSample(nn.Module):
-    """Nearest-resize x2 + kxk conv (the function the JAX sub-pixel conv
-    computes)."""
+    """Nearest-resize x2 + kxk conv, the function the JAX sub-pixel conv
+    computes; for kernel 3 and factor 2 (the JAX package's condition) run
+    as that sub-pixel conv. Without gradients the folded kernel, in the
+    compute dtype, is kept and folded anew only when the weight changes
+    (its version, storage, device or dtype)."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
                  act: str = "relu", factor: int = 2,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.factor = factor
+        self.subpixel = kernel == 3 and factor == 2
         self.ConvBlock_0 = ConvBlock(in_channels, features, kernel, act=act,
                                      dtype=dtype)
+        self._folded: Optional[tuple] = None  # (key, kernel)
+
+    def _subpixel_kernel(self) -> Tensor:
+        w, dtype = self.ConvBlock_0.Conv_0.weight, self.ConvBlock_0.dtype
+        if torch.is_grad_enabled() or w.is_inference():
+            return fold_subpixel(w).to(dtype)
+        key = (w.data_ptr(), w._version, w.device, w.dtype, dtype)
+        if self._folded is None or self._folded[0] != key:
+            kernel = fold_subpixel(w).to(dtype).contiguous(memory_format=torch.channels_last)
+            self._folded = (key, kernel)
+        return self._folded[1]
 
     def forward(self, x: Union[Tensor, Sequence[Tensor]]) -> Tensor:
         if not isinstance(x, Tensor):
             x = torch.cat(tuple(x), dim=1)
-        x = F.interpolate(x.to(self.ConvBlock_0.dtype), scale_factor=self.factor,
-                          mode="nearest")
-        return self.ConvBlock_0(x)
+        block = self.ConvBlock_0
+        x = x.to(block.dtype)
+        if not self.subpixel:
+            return block(F.interpolate(x, scale_factor=self.factor, mode="nearest"))
+        z = F.conv2d(x, self._subpixel_kernel(), padding=1)
+        # a (N, C, 1, 1) input is laid out both ways, and its conv may come
+        # back NCHW; the epilogue's kernel takes channels-last
+        z = z.contiguous(memory_format=torch.channels_last)
+        return bias_act.bias_act_subpixel(z, block.Conv_0.bias, block.act)
 
 
 def nearest_upsample(x: Tensor, factor: int = 2) -> Tensor:

@@ -13,8 +13,13 @@ from (models/factory._backbone_spec: UNetSpec, TiramisuSpec, the
 multi-scale pyramid, the KPN head, the tile grid of inference/tiled.py),
 and gives one Row per layer: its FLOPs and the bytes it must move, each
 input byte read once and each output byte written once. No tensor is
-allocated and no profiler runs. A conv's FLOPs are 2*N*Ho*Wo*Co*Ci*k*k;
-elementwise rows count one FLOP per element and operation (a
+allocated and no profiler runs. A conv's FLOPs are 2*N*Ho*Wo*Co*Ci*k*k.
+The decoder's resize-conv is counted as the model defines it, the x2
+resize and the kxk conv at full resolution (XLA's count of the JAX
+sub-pixel conv, zero taps included); the port runs a 3x3 one as a 2x2
+sub-pixel conv on the coarse grid (models/layers.py), with 4/9 of those
+FLOPs and without the resized tensor's bytes. Elementwise rows count one
+FLOP per element and operation (a
 transcendental counts one). Network rows are at the compute dtype; the
 KPN head (RMS-norm, softmax, the filter apply K1), the encode, decode and
 the joins around the network are fp32, as the port runs them.

@@ -1113,29 +1113,36 @@ EXACT_ACTS = ("leaky_relu", "relu", "none")
 
 
 @functools.lru_cache(maxsize=None)
-def _conv_output_shapes(path: str) -> tuple:
+def _epilogue_shapes(path: str) -> dict:
     """The distinct (N,C,H,W) conv outputs of a frame cell's network call
-    (EPILOGUE_PATHS), read off one forward on the card at random weights."""
+    (EPILOGUE_PATHS), read off one forward on the card at random weights:
+    {"plain": those the epilogue takes in place, "subpixel": the phase
+    tensors of the resize-convs}."""
     preset, lead = EPILOGUE_PATHS[path]
     mcfg = config.validate_channels(config.PRESETS[preset]).model
     model = factory.init_model(mcfg, torch.Generator().manual_seed(0)).to("cuda")
     x = torch.rand((*lead, mcfg.in_channels), device="cuda")
-    shapes = []
-    op = bias_act.bias_act
+    shapes = {"plain": [], "subpixel": []}
+    ops = {"plain": ("bias_act", bias_act.bias_act),
+           "subpixel": ("bias_act_subpixel", bias_act.bias_act_subpixel)}
 
-    def seen(z, b, act):
-        shapes.append(tuple(z.shape))
-        return op(z, b, act)
+    def seen(kind):
+        def call(z, b, act):
+            shapes[kind].append(tuple(z.shape))
+            return ops[kind][1](z, b, act)
+        return call
 
-    bias_act.bias_act = seen
     try:
+        for kind, (name, _) in ops.items():
+            setattr(bias_act, name, seen(kind))
         with torch.inference_mode():
             model(x)
         torch.cuda.synchronize()
     finally:
-        bias_act.bias_act = op
-    assert len(shapes) == EPILOGUES[preset]
-    return tuple(sorted(set(shapes)))
+        for name, op in ops.values():
+            setattr(bias_act, name, op)
+    assert len(shapes["plain"]) + len(shapes["subpixel"]) == EPILOGUES[preset]
+    return {kind: tuple(sorted(set(v))) for kind, v in shapes.items()}
 
 
 def _ulps(got, want) -> int:
@@ -1173,7 +1180,7 @@ def test_bias_act_kernel_matches_plain_version_at_every_backbone_shape(cuda, pat
     1080p plane, a chunk of eight 4K tiles), bf16, channels-last as the
     path lays them out."""
     gen = torch.Generator(device=cuda).manual_seed(20)
-    shapes = _conv_output_shapes(path)
+    shapes = _epilogue_shapes(path)["plain"]
     bias_act.reset_launches()
     for shape in shapes:
         z = (3 * torch.randn(shape, generator=gen, device=cuda)).to(torch.bfloat16)
@@ -1239,11 +1246,16 @@ def _plain_epilogue(z, b, act):
     return bias_act.bias_act_plain(z, b, act)
 
 
+def _plain_subpixel_epilogue(z, b, act):
+    return bias_act.bias_act_subpixel_plain(z, b, act)
+
+
 def test_kpn_hq_1080p_frame_equals_the_plain_epilogue_bit_for_bit(cuda, fourier_1080p,
                                                                   monkeypatch):
     """The release kpn-hq frame denoiser (bf16) at 1080p: 21 launches a
-    frame, and every output pass equal to the same frame with the plain
-    chain in the kernel's place."""
+    frame, 3 of them the resize-convs' sub-pixel epilogue, and every output
+    pass equal to the same frame with the plain chains (the plain
+    interleave included) in the kernel's place."""
     cfg = config.validate_channels(config.PRESETS["kpn-hq"])
     params = weights_io.load_release_params(REPO / "weights" / "kpn_hq_ema_f16.npz")
     frame = fourier_1080p["noisy"]
@@ -1251,10 +1263,11 @@ def test_kpn_hq_1080p_frame_equals_the_plain_epilogue_bit_for_bit(cuda, fourier_
     bias_act.reset_launches()
     got = den(frame)
     torch.cuda.synchronize()
-    assert bias_act.launches == 21
+    assert bias_act.launches == 21 and bias_act.subpixel_launches == 3
     monkeypatch.setattr(bias_act, "bias_act", _plain_epilogue)
+    monkeypatch.setattr(bias_act, "bias_act_subpixel", _plain_subpixel_epilogue)
     want = den(frame)
-    assert bias_act.launches == 21
+    assert bias_act.launches == 21 and bias_act.subpixel_launches == 3
     assert set(got) == set(want)
     for k in want:
         assert torch.equal(got[k], want[k]), k
@@ -1352,6 +1365,150 @@ def test_conv_epilogue_equals_the_conv_with_its_bias_bit_for_bit(cuda, cin, cout
         op = bias_act.bias_act(F.conv2d(inp, w, **kw), conv.bias, act)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(op, want)
+
+
+def _subpixel_matches(z, b, act):
+    """The sub-pixel instantiation against the plain interleave and the
+    plain epilogue, with `_epilogue_matches`'s bar: equal for leaky_relu,
+    relu and none, within 1 ulp for elu, gelu and silu. One launch, counted
+    as both an epilogue and a sub-pixel one; a new channels-last tensor."""
+    before = (bias_act.launches, bias_act.subpixel_launches)
+    got = bias_act.bias_act_subpixel_cuda(z, b, act)
+    want = bias_act.bias_act_subpixel_plain(z, b, act)
+    torch.cuda.synchronize()
+    assert (bias_act.launches, bias_act.subpixel_launches) == (before[0] + 1, before[1] + 1)
+    assert got.shape == want.shape and got.dtype == z.dtype and got.data_ptr() != z.data_ptr()
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    if act in EXACT_ACTS:
+        assert torch.equal(got, want), act
+    else:
+        assert _ulps(got, want) <= 1, act
+
+
+def _phases(shape, dtype, gen):
+    z = (3 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+    return z.contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("act", sorted(bias_act.ACTIVATIONS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("n,f,h,w", [
+    (1, 48, 5, 7),     # odd coarse sizes, flagship-max's finest width
+    (4, 64, 9, 3),     # the group batch of four
+    (8, 96, 3, 11),    # a chunk of eight tiles
+    (2, 20, 3, 5),     # F not a whole number of bf16 vectors: one element a load
+    (1, 3, 1, 1),      # one coarse pixel, three channels
+], ids=["odd-48", "n4-64", "n8-96", "f20", "tiny"])
+def test_subpixel_epilogue_matches_the_plain_interleave_and_epilogue(cuda, n, f, h, w, dtype, act):
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    z = _phases((n, 4 * f, h + 1, w + 1), dtype, gen)
+    b = torch.randn((f,), generator=gen, device=cuda)
+    _subpixel_matches(z, b, act)
+    if dtype == torch.bfloat16:  # a bias already in the working dtype
+        _subpixel_matches(z, b.to(dtype), act)
+
+
+@pytest.mark.parametrize("act", ["leaky_relu", "relu", "gelu"])
+@pytest.mark.parametrize("path", list(EPILOGUE_PATHS))
+def test_subpixel_epilogue_matches_at_every_resize_conv_of_the_cells(cuda, path, act):
+    """The phase tensors of the four frame cells' resize-convs (the 1080p
+    plane, a chunk of eight 4K tiles), bf16 channels-last, as the path
+    lays them out."""
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    shapes = _epilogue_shapes(path)["subpixel"]
+    assert len(shapes) == 3
+    for shape in shapes:
+        z = _phases(shape, torch.bfloat16, gen)
+        _subpixel_matches(z, torch.randn((shape[1] // 4,), generator=gen, device=cuda), act)
+        del z
+
+
+@pytest.mark.parametrize("case", ["nchw", "misaligned"])
+def test_subpixel_epilogue_refuses_what_the_kernel_does_not_take_on_the_card(cuda, case):
+    shape = (2, 4 * 64, 11, 9)
+    if case == "nchw":
+        z, match = torch.randn(shape, device=cuda).to(torch.bfloat16), "channels-last"
+    else:
+        flat = torch.randn((1 + math.prod(shape),), device=cuda).to(torch.bfloat16)
+        z = flat[1:].view(2, 11, 9, 4 * 64).permute(0, 3, 1, 2)
+        match = "16-byte aligned"
+    b = torch.randn((64,), device=cuda)
+    bias_act.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        bias_act.bias_act_subpixel(z, b, "leaky_relu")
+    assert bias_act.launches == 0 and bias_act.subpixel_launches == 0
+
+
+def test_subpixel_upsample_on_the_card_equals_the_resize_then_conv(cuda):
+    """fp32 with TF32 off, kpn-hq's finest resize-conv (128 -> 64) over a
+    batch of two odd planes: within 1e-4 x max|ref| (the model tests' bar;
+    cuDNN picks its fp32 algorithm per shape) of the resize, the conv
+    with its bias and the activation; the folded kernel is kept between
+    calls; under grad the path launches the plain epilogue."""
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    up = layers.UpSample(128, 64, 3, act="leaky_relu").to(cuda)
+    with torch.no_grad():
+        up.ConvBlock_0.Conv_0.bias.normal_(generator=gen)
+    x = torch.randn((2, 128, 37, 53), generator=gen, device=cuda)
+    x = x.contiguous(memory_format=torch.channels_last)
+    conv = up.ConvBlock_0.Conv_0
+    with _full_fp32(), torch.no_grad():
+        bias_act.reset_launches()
+        got = up(x)
+        kept = up._folded[1]
+        again = up(x)
+        want = F.leaky_relu(F.conv2d(F.interpolate(x, scale_factor=2, mode="nearest"),
+                                     conv.weight, conv.bias, padding=1), 0.2)
+        torch.cuda.synchronize()
+        assert (bias_act.launches, bias_act.subpixel_launches) == (2, 2)
+        assert up._folded[1] is kept and torch.equal(got, again)
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+        bias_act.reset_launches()
+    with _full_fp32():
+        graded = up(x.clone().requires_grad_())
+        torch.cuda.synchronize()
+    assert (bias_act.launches, bias_act.subpixel_launches) == (1, 0)
+    assert float((graded.detach() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def _subpixel_frame(case, fourier_1080p):
+    """(a frame denoiser of a frame cell's configuration in bf16, its frame,
+    its network calls a frame)."""
+    frame = fourier_1080p["noisy"]
+    if case == "unet-multiscale":
+        d = json.loads((REPO / "h100_bench" / "configs" / "unet-multiscale.json").read_text())
+        params = weights_io.load_release_params(REPO / d.pop("bench")["weights"])
+        cfg = config.from_dict(config.ExperimentConfig, d)
+    else:
+        preset = "kpn-hq" if case == "kpn-hq-4k-tiled" else case
+        cfg = config.validate_channels(config.PRESETS[preset])
+        params = _release_params(preset)
+    infer, (h, w), calls = cfg.infer, FRAME, 1
+    if case == "kpn-hq-4k-tiled":
+        infer = dataclasses.replace(infer, tile=512, tile_batch=8)
+        frame, (h, w), calls = {k: _mirror_2x2(v) for k, v in frame.items()}, (2160, 3840), 5
+    make, group = _maker(cfg.model)
+    infer = dataclasses.replace(infer, use_pallas_ingest=group)
+    den, _ = make(cfg.model, infer, h, w, params)
+    return den, frame, calls
+
+
+@pytest.mark.parametrize("case,subpixel,epilogues", [
+    ("kpn-hq", 3, 21), ("flagship-max", 3, 21), ("kpn-hq-4k-tiled", 15, 105),
+    ("tiramisu-lt1", 3, 33), ("unet-multiscale", 9, 63)])
+def test_frames_of_the_cells_count_the_subpixel_epilogue(cuda, fourier_1080p, case, subpixel,
+                                                        epilogues):
+    """A frame of each frame cell's configuration: the resize-convs' sub-pixel
+    epilogue 3 a network call (15 in the tiled 4K frame's 5 calls, 9 in the
+    multi-scale frame's three backbone runs), within the epilogue's launches
+    a frame, which the resize-convs leave as they were."""
+    den, frame, calls = _subpixel_frame(case, fourier_1080p)
+    bias_act.reset_launches()
+    den(frame)
+    torch.cuda.synchronize()
+    assert (bias_act.subpixel_launches, bias_act.launches) == (subpixel, epilogues)
+    preset = "kpn-hq" if case == "kpn-hq-4k-tiled" else case
+    assert epilogues == EPILOGUES[preset] * calls
 
 
 # --------------------------------------------------------------------------

@@ -63,7 +63,11 @@ def test_network_flops_match_xla_cost_analysis(model):
 
 
 class _ConvFlops:
-    """Wraps F.conv2d and sums 2*N*Ho*Wo*Co*(Ci/groups)*kh*kw of each call."""
+    """Wraps F.conv2d and sums 2*N*Ho*Wo*Co*(Ci/groups)*kh*kw of each call;
+    a resize-conv's 2x2 sub-pixel call (4F outputs on (H+1)x(W+1) coarse
+    positions) counts the function it computes, the 3x3 conv of F outputs
+    over the (2H, 2W) resized input, as the counter's row does (the
+    model's FLOPs, which XLA counts for the JAX sub-pixel conv)."""
 
     def __init__(self, monkeypatch):
         self.flops, self.calls = 0, 0
@@ -72,7 +76,10 @@ class _ConvFlops:
         def counted(x, weight, *a, **kw):
             y = real(x, weight, *a, **kw)
             co, ci, kh, kw_ = weight.shape
-            self.flops += 2 * y.shape[0] * y.shape[2] * y.shape[3] * co * ci * kh * kw_
+            ho, wo = y.shape[2], y.shape[3]
+            if (kh, kw_) == (2, 2):
+                co, ho, wo, kh, kw_ = co // 4, 2 * (ho - 1), 2 * (wo - 1), 3, 3
+            self.flops += 2 * y.shape[0] * ho * wo * co * ci * kh * kw_
             self.calls += 1
             return y
 
