@@ -9,6 +9,17 @@ grid is planned here from the halo that the configuration's reference
 module certifies. Nothing here imports the program, so a change to the
 program cannot move the yardstick.
 
+The architecture comes from the caller: `arch`, the configuration's
+reference module (reference/<bench.reference>.py), gives the plane's
+multiple (`arch.multiple(model)`) and counts the backbone under the head
+(`arch.count_backbone(net, n, h, w, c_in, c_out, prefix)`, driving
+`_Net`'s conv_block, concat, upsample and head, or its unet and
+tiramisu). Where a caller has a bare model dict and no configuration,
+registry.architecture finds the module by the model's own fields. A
+backbone that no module counts raises ValueError. What wraps the backbone
+stays here: the multi-scale pyramid and compose, the KPN head, the
+encode, pad, stitch and decode.
+
 A conv's FLOPs are 2*N*Ho*Wo*Co*Ci*k*k; elementwise rows count one FLOP
 per element and operation; every input byte is read once and every output
 byte written once. Network rows are at the compute dtype; the KPN head,
@@ -19,6 +30,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import List, Mapping, Sequence
+
+from h100_bench import registry
 
 # NVIDIA's data sheet, H100 SXM, dense, at a 700 W power limit
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -83,17 +96,12 @@ def unet_widths(model: Mapping) -> List[int]:
     return [min(int(model["base_width"] * 2.0 ** level), 512) for level in range(model["depth"] + 1)]
 
 
-def spatial_multiple(model: Mapping) -> int:
-    m = 2 ** model["depth"] * model["stem_stride"]
-    return m * 2 ** (model["n_scales"] - 1)
-
-
 class _Net:
     """Counts the network over an (n, h, w, c_in) fp32 input, layer by
-    layer, in the port's order."""
+    layer, in the port's order; `arch` counts the backbone."""
 
-    def __init__(self, model: Mapping, rows: _Rows):
-        self.m, self.r = model, rows
+    def __init__(self, model: Mapping, rows: _Rows, arch):
+        self.m, self.r, self.arch = model, rows, arch
         self.dt = model["compute_dtype"]
         self.act = _ACT_FLOPS[model["act"]]
 
@@ -206,10 +214,11 @@ class _Net:
         self.head(f"{prefix}Conv_0", n, h, w, c, cout, s)
 
     def backbone(self, n, h, w, cout, prefix=""):
-        if self.m["backbone"] == "unet":
-            self.unet(n, h, w, self.m["in_channels"], cout, prefix)
-        else:
-            self.tiramisu(n, h, w, self.m["in_channels"], cout, prefix)
+        count = getattr(self.arch, "count_backbone", None)
+        if not callable(count):
+            raise ValueError(f"{self.arch.__name__} does not count backbone "
+                             f"{self.m['backbone']!r}: it has no count_backbone")
+        count(self, n, h, w, self.m["in_channels"], cout, prefix)
 
     def model(self, n, h, w):
         m, r = self.m, self.r
@@ -249,10 +258,10 @@ class _Net:
             r.elementwise("residual add", "elementwise", F32, px * m["out_channels"], 1, inputs=2)
 
 
-def count_network(model: Mapping, n: int, h: int, w: int) -> List[Row]:
+def count_network(model: Mapping, n: int, h: int, w: int, arch=None) -> List[Row]:
     """Rows of the model's forward over an (n, h, w, in_channels) fp32 input."""
     rows = _Rows("model")
-    _Net(model, rows).model(n, h, w)
+    _Net(model, rows, arch or registry.architecture(model)).model(n, h, w)
     return rows.rows
 
 
@@ -315,11 +324,12 @@ class Grid:
         return self.rows * self.tile_h, self.cols * self.tile_w
 
 
-def plan(model: Mapping, infer: Mapping, height: int, width: int, certified_halo: int) -> Grid:
+def plan(model: Mapping, infer: Mapping, height: int, width: int, certified_halo: int,
+         arch=None) -> Grid:
     """The grid of a frame: whole-frame mode pads by min(halo, border);
-    tiled mode keeps the certified halo; both rounded to the model's
-    spatial multiple."""
-    m = spatial_multiple(model)
+    tiled mode keeps the certified halo; both rounded to the multiple that
+    the architecture's plane divides."""
+    m = (arch or registry.architecture(model)).multiple(model)
     halo = infer["halo"] if infer["halo"] > 0 else certified_halo
     if infer["tile"] == 0 and not infer["spatial_shard"] and infer["border"] >= 0:
         halo = min(halo, infer["border"])
@@ -335,13 +345,14 @@ def mode(model: Mapping) -> str:
 
 
 def count_frame(model: Mapping, infer: Mapping, height: int, width: int, certified_halo: int,
-                groups: Sequence[str] = LIGHT_GROUPS, aux: Sequence[str] = AUX_PASSES
-                ) -> List[Row]:
+                groups: Sequence[str] = LIGHT_GROUPS, aux: Sequence[str] = AUX_PASSES,
+                arch=None) -> List[Row]:
     """Rows of one frame through the frame denoiser: the encode, the reflect
     pad, the network over the plane or its tiles, the crop or stitch, the
     decode and the recomposition."""
     md = mode(model)
-    grid = plan(model, infer, height, width, certified_halo)
+    arch = arch or registry.architecture(model)
+    grid = plan(model, infer, height, width, certified_halo, arch)
     model = {**model, "compute_dtype": infer["compute_dtype"]}
     px = height * width
     enc, pad, dec = _Rows("encode"), _Rows("pad"), _Rows("decode")
@@ -369,7 +380,7 @@ def count_frame(model: Mapping, infer: Mapping, height: int, width: int, certifi
             calls = _ceil_div(n_tiles, tb)
             n_tiles = calls * tb
         pad.copy("tile gather", "copy", F32, n_tiles * grid.net_h * grid.net_w * c_in)
-    net = count_network(model, n_tiles, grid.net_h, grid.net_w)
+    net = count_network(model, n_tiles, grid.net_h, grid.net_w, arch)
     if calls > 1:
         net = [dataclasses.replace(r, calls=r.calls * calls) for r in net]
     crop = _Rows("crop")

@@ -39,6 +39,18 @@ def rel_l2(out: Tensor, ref: Tensor) -> float:
     return float(d / ref.double().norm().clamp_min(1e-30))
 
 
+def plane(cell: registry.Cell) -> Tuple[int, int, int]:
+    """(halo, context, multiple) of the check's reference plane: the halo it
+    is padded by, the rows of context around each band, and the multiple
+    the plane divides, the configuration's reference module's
+    `multiple(model)`, as the program plans its own plane."""
+    model = cell.config["model"]
+    arch = registry.reference(cell.config["bench"]["reference"], cell.root)
+    certified, m = arch.halo(model), arch.multiple(model)
+    halo = ref_frame.plane_halo(program.settings(cell)["infer"], certified, m)
+    return halo, -(-certified // m) * m, m
+
+
 class Session:
     def __init__(self, cell: registry.Cell, seed: int, device: torch.device):
         from deepdenoiser_tpu_torch import weights_io
@@ -129,10 +141,7 @@ class Session:
         arch = registry.reference(self.cell.config["bench"]["reference"], self.cell.root)
         p = arch.to_device(arch.load_params(self.cell.root.parent / self.cell.config["bench"]["weights"]),
                            self.device)
-        certified = arch.halo(model)
-        m = 2 ** model["depth"] * model["stem_stride"]
-        halo = ref_frame.plane_halo(self.settings["infer"], certified, m)
-        context = -(-certified // m) * m
+        halo, context, m = plane(self.cell)
         band = self.cell.workload["check"]["band_rows"]
         refs = {}
         with no_tf32():

@@ -15,6 +15,7 @@ PATTERNS = ("bias_act_kernel",)
 def read(run):
     if run.cell.traffic["driver"] != "frames":
         return None
-    rows = [r for r in counts.count_network(run.model, *readers.net_batch(run)) if r.kind == "bias"]
+    rows = [r for r in counts.count_network(run.model, *readers.net_batch(run), readers.arch(run))
+            if r.kind == "bias"]
     return readers.roofline_pct(counts.bound_s(rows) * run.attempted,
                                 readers.device_ns(run, PATTERNS))

@@ -16,7 +16,7 @@ def read(run):
     if run.cell.traffic["driver"] != "frames" or counts.mode(run.model) != "joint":
         return None
     h, w = readers.frame_hw(run)
-    grid = counts.plan(run.model, run.info["infer"], h, w, readers.certified_halo(run))
+    grid = readers.plan(run)
     ph, pw = grid.padded_hw
     c_src = 9 * len(counts.LIGHT_GROUPS) + sum(counts.AUX_CHANNELS.values())
     c_in = run.model["in_channels"]

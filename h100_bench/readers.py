@@ -16,8 +16,14 @@ K1_BWD_WEIGHTS = ("kpn_bwd_weights_kernel",)
 GROUP_ENCODE = ("group_encode_kernel",)
 
 
+def arch(run):
+    """The cell's reference module (its configuration's bench.reference):
+    the architecture's halo, plane multiple and counted backbone."""
+    return registry.reference(run.cell.config["bench"]["reference"], run.cell.root)
+
+
 def certified_halo(run) -> int:
-    return registry.reference(run.cell.config["bench"]["reference"], run.cell.root).halo(run.model)
+    return arch(run).halo(run.model)
 
 
 def frame_hw(run):
@@ -29,15 +35,23 @@ def whole_frame_flops(run) -> int:
     size (tile 0): the work the frame needs, no tile's halo recomputed."""
     infer = {**run.info["infer"], "tile": 0, "tile_batch": 0}
     h, w = frame_hw(run)
-    return counts.totals(counts.count_frame(run.model, infer, h, w, certified_halo(run)))["flops"]
+    a = arch(run)
+    rows = counts.count_frame(run.model, infer, h, w, a.halo(run.model), arch=a)
+    return counts.totals(rows)["flops"]
+
+
+def plan(run) -> counts.Grid:
+    """The cell's frame plan, at the multiple of the cell's architecture."""
+    h, w = frame_hw(run)
+    a = arch(run)
+    return counts.plan(run.model, run.info["infer"], h, w, a.halo(run.model), a)
 
 
 def net_batch(run):
     """(N, h, w): the tiles (or planes) a frame's network runs over, with
     the last chunk filled to tile_batch as the program runs it."""
     infer = run.info["infer"]
-    h, w = frame_hw(run)
-    grid = counts.plan(run.model, infer, h, w, certified_halo(run))
+    grid = plan(run)
     g = 4 if counts.mode(run.model) == "group" else 1
     n = g * grid.n_tiles
     tb = infer["tile_batch"]

@@ -25,12 +25,13 @@ UNet, where the paper predicts kernels; the pyramid is built by 2x2
 average pools and the coarse output upsampled by nearest x2.
 `halo` is the certified one-sided receptive field, by the same interval
 arithmetic as models/multiscale.multiscale_rf_state (263 pixels at the
-preset unet-multiscale), rounded up to the multiple (288 there): the
-program's plan rounds it so, and the benchmark's frames driver takes the
-plane's multiple as 2**depth, so the reference's plane lies on the
-pyramid's pooling grid only with the rounded halo. The zero rows that
-`network` adds lie more than that halo past the frame, out of every frame
-pixel's receptive field.
+preset unet-multiscale), rounded up to the multiple (288 there), as the
+program's plan rounds it. `multiple` is the size the plane divides, the
+UNet's 2**depth at the coarsest scale; the benchmark's frames driver and
+the counter plan the plane with it, so `network` adds no zero rows to a
+planned plane. The backbone's rows (`count_backbone`) and the seeded
+parameters (`param_shapes`) are the UNet's; the pyramid and the compose
+are counted by counts.py, which wraps the backbone in scales.
 """
 
 from __future__ import annotations
@@ -42,9 +43,11 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
-from h100_bench.reference.unet import load_params, signal, to_device, unet
+from h100_bench.reference.unet import (count_backbone, load_params, param_shapes, signal,
+                                       to_device, unet)
 
-__all__ = ["load_params", "to_device", "network", "halo"]
+__all__ = ["load_params", "to_device", "network", "halo", "multiple", "count_backbone",
+           "param_shapes"]
 
 Tensor = torch.Tensor
 

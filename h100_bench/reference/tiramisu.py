@@ -31,21 +31,27 @@ down block stands for the bottleneck block; the 1x1 compression of the
 join is not the paper's; a linear residual head in place of the softmax
 classifier.
 `halo` is the certified one-sided receptive field, by the same interval
-arithmetic as TiramisuSpec.rf_state.
+arithmetic as TiramisuSpec.rf_state; `multiple` the size the plane
+divides, 2**depth * stem_stride; `count_backbone` its rows of the frozen
+counter (counts._Net.tiramisu); `param_shapes` the parameters of the
+release format, in the order `tiramisu` reads them.
 """
 
 from __future__ import annotations
 
 import math
 from fractions import Fraction
-from typing import Mapping
+from typing import Dict, Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from h100_bench.reference.unet import _conv, load_params, signal, to_device
+from h100_bench.reference.unet import _conv, conv_shapes, load_params, signal, to_device
 
-__all__ = ["load_params", "to_device", "network", "halo"]
+__all__ = ["load_params", "to_device", "network", "halo", "multiple", "count_backbone",
+           "param_shapes"]
+
+STEM_WIDTH = 48
 
 Tensor = torch.Tensor
 
@@ -111,3 +117,47 @@ def halo(model: Mapping) -> int:
         bl += a
         conv(1 + (_top(model) if level == model["depth"] - 1 else model["layers_per_block"]))
     return math.ceil(max(bl, br))
+
+
+def multiple(model: Mapping) -> int:
+    """The size the network's plane divides: 2**depth * stem_stride."""
+    return 2 ** model["depth"] * model["stem_stride"]
+
+
+def count_backbone(net, n: int, h: int, w: int, cin: int, cout: int, prefix: str = "") -> None:
+    """The FC-DenseNet's rows (counts._Net.tiramisu) over an (n, h, w, cin)
+    input."""
+    net.tiramisu(n, h, w, cin, cout, prefix)
+
+
+def param_shapes(model: Mapping) -> Dict[str, Tuple[int, ...]]:
+    """Flat Flax path -> shape of every parameter of the FC-DenseNet, kernels
+    HWIO: the convs `tiramisu` reads, with the widths it reads them at."""
+    g, n, depth = model["growth_rate"], model["layers_per_block"], model["depth"]
+    convs: Dict[str, Tuple[int, int, int]] = {}
+    blocks = iter(range(2 * depth + 1))
+    transitions = iter(range(1, 2 * depth + 1))
+
+    def dense(c, n_layers):
+        b = f"Tiramisu_0/DenseBlock_{next(blocks)}"
+        for i in range(n_layers):
+            convs[f"{b}/ConvBlock_{i}/Conv_0"] = (3, c + i * g, g)
+        return c + n_layers * g
+
+    convs["Tiramisu_0/ConvBlock_0/Conv_0"] = (3, model["in_channels"], STEM_WIDTH)
+    c = dense(STEM_WIDTH, _top(model))
+    skips = []
+    for _ in range(depth):
+        skips.append(c)
+        convs[f"Tiramisu_0/ConvBlock_{next(transitions)}/Conv_0"] = (1, c, c // 2)
+        c = dense(c // 2, n)
+    for level, skip in enumerate(reversed(skips)):
+        up = max(g * n, skip // 2)
+        convs[f"Tiramisu_0/UpSample_{level}/ConvBlock_0/Conv_0"] = (3, c, up)
+        c = up + skip
+        if 0 < model["up_compress"] < c:
+            convs[f"Tiramisu_0/ConvBlock_{next(transitions)}/Conv_0"] = (1, c, model["up_compress"])
+            c = model["up_compress"]
+        c = dense(c, _top(model) if level == depth - 1 else n)
+    convs["Tiramisu_0/Conv_0"] = (1, c, model["out_channels"])
+    return conv_shapes(convs)

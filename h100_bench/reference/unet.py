@@ -18,14 +18,17 @@ What it computes, layer by layer:
     slot's 3 signal channels over a zero-padded plane, in float32;
   * the residual head: the output plus the signal channels.
 `halo` is the certified one-sided receptive field, by the same interval
-arithmetic as models/layers.RFState.
+arithmetic as models/layers.RFState; `multiple` the size the plane
+divides, 2**depth * stem_stride; `count_backbone` the UNet's rows of the
+frozen counter (counts._Net.unet); `param_shapes` the parameters a seeded
+weights file holds.
 """
 
 from __future__ import annotations
 
 import math
 from fractions import Fraction
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -203,3 +206,48 @@ def halo(model: Mapping) -> int:
     if model["kernel_prediction"]:
         s = conv(s, model["kpn_size"])
     return math.ceil(max(s[1], s[2]))
+
+
+def multiple(model: Mapping) -> int:
+    """The size the network's plane divides: 2**depth * stem_stride."""
+    return 2 ** model["depth"] * model["stem_stride"]
+
+
+def count_backbone(net, n: int, h: int, w: int, cin: int, cout: int, prefix: str = "") -> None:
+    """The UNet's rows (counts._Net.unet) over an (n, h, w, cin) input."""
+    net.unet(n, h, w, cin, cout, prefix)
+
+
+def param_shapes(model: Mapping) -> Dict[str, Tuple[int, ...]]:
+    """Flat Flax path -> shape of every parameter of the model's UNet (a
+    residual or multi-scale model: no KPN head), kernels HWIO."""
+    if model["backbone"] != "unet" or model["kernel_prediction"] or model["stem_stride"] != 1:
+        raise ValueError("seeded weights cover UNet models with a stride-1 stem and no KPN head")
+    depth, n_conv = model["depth"], model["convs_per_level"]
+    widths = _widths(model)
+    convs: Dict[str, Tuple[int, int, int]] = {}
+
+    def stack(i, cin, width):
+        for j in range(n_conv):
+            convs[f"UNet_0/ConvStack_{i}/ConvBlock_{j}/Conv_0"] = (3, cin if j == 0 else width, width)
+
+    stack(0, model["in_channels"], widths[0])
+    for level in range(1, depth + 1):
+        convs[f"UNet_0/DownSample_{level - 1}/ConvBlock_0/Conv_0"] = (3, widths[level - 1],
+                                                                       widths[level])
+        stack(level, widths[level], widths[level])
+    for i, level in enumerate(range(depth - 1, -1, -1)):
+        convs[f"UNet_0/UpSample_{i}/ConvBlock_0/Conv_0"] = (3, widths[level + 1], widths[level])
+        stack(depth + 1 + i, 2 * widths[level], widths[level])
+    convs["UNet_0/Conv_0"] = (1, widths[0], model["out_channels"])
+    return conv_shapes(convs)
+
+
+def conv_shapes(convs: Mapping[str, Tuple[int, int, int]]) -> Dict[str, Tuple[int, ...]]:
+    """{conv path: (k, c_in, c_out)} -> its kernel's (k, k, c_in, c_out) and
+    bias's (c_out,) shapes under "<path>/kernel" and "<path>/bias"."""
+    shapes = {}
+    for path, (k, cin, cout) in convs.items():
+        shapes[path + "/kernel"] = (k, k, cin, cout)
+        shapes[path + "/bias"] = (cout,)
+    return shapes

@@ -7,6 +7,13 @@ cells and the metrics; each lives in files of its own under this folder:
                            experiment config (model, data, train, infer)
                            and a "bench" group: release weights file and the
                            reference module (reference/<module>.py)
+  reference/<module>.py    the architecture's plain reference, and the one
+                           place that describes it to the harness:
+                           load_params, to_device, network (the forward),
+                           halo (certified receptive field), multiple (what
+                           the plane divides), count_backbone (its rows of
+                           counts.py) and param_shapes (what a seeded
+                           weights file holds); a configuration names it
   traffic/<traffic>.json   a traffic mix: the driver that runs it
                            (drivers/<driver>.py) and the generator's
                            parameters (traffic.py)
@@ -35,6 +42,9 @@ HERE = Path(__file__).resolve().parent
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 SOURCES = ("device_trace", "program_span", "program_counter", "host_clock")
+# what every module under reference/ that a configuration names defines
+ARCHITECTURE = ("load_params", "to_device", "network", "halo", "multiple", "count_backbone",
+                "param_shapes")
 
 
 @dataclasses.dataclass
@@ -114,10 +124,24 @@ def reference(name: str, root: Path = HERE) -> ModuleType:
     return _module(root / "reference" / f"{name}.py", f"h100_bench_reference_{name}")
 
 
+def architecture(model: dict, root: Path = HERE) -> ModuleType:
+    """The reference module a bare model dict names by its own fields, for a
+    caller that has the model and no configuration: reference/multiscale.py
+    under scales, reference/<backbone>.py otherwise. A cell's own module is
+    the one its configuration names (bench.reference)."""
+    name = "multiscale" if model["n_scales"] > 1 else model["backbone"]
+    if not (root / "reference" / f"{name}.py").is_file():
+        raise ValueError(f"no reference module describes backbone {model['backbone']!r}: "
+                         f"no reference/{name}.py")
+    return reference(name, root)
+
+
 def validate(bench: Bench) -> List[str]:
     """Every problem with BENCHMARK.json and the files it names; [] when
-    none. Checks names and units, that every file exists, that each metric
-    file declares what BENCHMARK.json says of it, and that every cell
+    none. Checks names and units, that every file exists, that each
+    configuration's reference module defines every function of
+    ARCHITECTURE, that each metric file declares what BENCHMARK.json says
+    of it, and that every cell
     reports setup_s, another end-to-end metric and a per-layer metric."""
     spec, root, repo = bench.spec, bench.root, bench.repo
     problems: List[str] = []
@@ -139,6 +163,12 @@ def validate(bench: Bench) -> List[str]:
                     problems.append(f"config {c['name']}: no bench.{key}")
             if "reference" in b and not (root / "reference" / f"{b['reference']}.py").is_file():
                 problems.append(f"config {c['name']}: no reference/{b['reference']}.py")
+            elif "reference" in b:
+                mod = reference(b["reference"], root)
+                lacks = [f for f in ARCHITECTURE if not callable(getattr(mod, f, None))]
+                if lacks:
+                    problems.append(f"config {c['name']}: reference/{b['reference']}.py lacks "
+                                    + ", ".join(lacks))
     metrics = spec["end_to_end"] + spec["per_layer"]
     for m in metrics:
         name_ok("metric", m["name"])

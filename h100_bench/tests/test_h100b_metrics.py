@@ -70,6 +70,9 @@ def test_whole_window_rate_and_p95_over_every_frame():
     assert _metric("frames_per_s", run) == 50.0
     assert _metric("frame_ms_p95", run) == pytest.approx(48.0)
     assert _metric("frame_ms_p95", _run("kpn-hq.1080p", latencies_ms=[1.0] * 10)) is None
+    host_bound = _run("tiramisu-lt1.1080p", attempted=100, window_s=2.0, latencies_ms=lat)
+    assert _metric("frame_ms_p95.host_bound", host_bound) == pytest.approx(48.0)
+    assert _metric("frame_ms_p95.host_bound", _run("tiramisu-lt1.1080p", latencies_ms=[1.0] * 10)) is None
     assert _metric("train_samples_per_s", run) is None
 
 

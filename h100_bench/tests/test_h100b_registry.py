@@ -130,6 +130,9 @@ def test_a_missing_file_or_a_mislabelled_metric_is_reported(tmp_path):
     (root / "metrics" / "k1_roofline.py").write_text(
         (root / "metrics" / "k1_roofline.py").read_text().replace('"%"', '"percent"'))
     (root / "traffic" / "frames-4k.json").unlink()
+    ref = root / "reference" / "tiramisu.py"
+    ref.write_text(ref.read_text().replace("def param_shapes(", "def _param_shapes("))
     problems = registry.validate(registry.load(tmp_path / "BENCHMARK.json", root))
     assert any("k1_roofline" in p and "unit" in p for p in problems)
     assert any("frames-4k" in p for p in problems)
+    assert any("tiramisu-lt1" in p and "lacks param_shapes" in p for p in problems)
