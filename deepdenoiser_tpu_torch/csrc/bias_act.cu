@@ -63,6 +63,17 @@
 // store; other F take one element a load. It reads 4HWF elements of z and
 // writes as many: the bytes of the plain kernel on the full-resolution conv
 // output it replaces.
+//
+// The wide instantiation (bias_act_kernel_wide) takes a z of more than
+// 2**31 - 1 elements: the logits of the KPCN's 882-output conv, 7.92e9 at
+// its 1080p plane. The launch picks it by size, so every smaller tensor
+// runs the 32-bit kernel above. Each block finds its own span of NT*UNROLL
+// vectors from a 64-bit base and steps z and out to it; inside the span
+// the indices, the channel walk and the tail are the 32-bit ones above,
+// from a flat index that has the span's first element's channel (and, in
+// NCHW, its place in the plane): for channels-last the span start's
+// channel is a product of two residues, in 32 bits; for NCHW it takes
+// 64-bit divisions, once a thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -255,22 +266,83 @@ bias_act_kernel(const T* z, const float* __restrict__ bias, T* out, unsigned n, 
   }
 }
 
+// the wide instantiation: n > 2**31 - 1 elements; the span of block b
+// starts at element b * NT * UNROLL * V
+template <typename T, int ACT, bool PLANAR, int V>
+__global__ void __launch_bounds__(NT)
+bias_act_kernel_wide(const T* z, const float* __restrict__ bias, T* out, unsigned long long n,
+                     unsigned c, unsigned hw) {
+  extern __shared__ float sb[];
+  using P = Pack<T, V>;
+  constexpr unsigned SPAN = NT * UNROLL * V;
+  const unsigned long long base = static_cast<unsigned long long>(blockIdx.x) * SPAN;
+  const unsigned ne = static_cast<unsigned>(min(n - base, static_cast<unsigned long long>(SPAN)));
+  unsigned e0;  // a flat index whose channel (and place in the plane) is base's
+  if (PLANAR) {
+    const unsigned long long q = base / hw;
+    e0 = static_cast<unsigned>(q % c) * hw + static_cast<unsigned>(base - q * hw);
+  } else {
+    e0 = (blockIdx.x % c) * (SPAN % c) % c;
+  }
+  z += base;
+  out += base;
+  const unsigned nvec = ne / V;
+  P p[UNROLL];
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const unsigned i = threadIdx.x + u * NT;
+    if (i < nvec) p[u] = load<T, V>(z, i);
+  }
+  for (unsigned k = threadIdx.x; k < c; k += NT) sb[k] = round_to<T>(__ldg(bias + k));
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const unsigned i = threadIdx.x + u * NT;
+    if (i < nvec) {
+      apply<T, ACT, PLANAR, V>(p[u], e0 + i * V, sb, c, hw);
+      store<T, V>(out, i, p[u]);
+    }
+  }
+  for (unsigned e = nvec * V + threadIdx.x; e < ne; e += NT) {  // the last span's tail
+    Pack<T, 1> one = load<T, 1>(z, e);
+    apply<T, ACT, PLANAR, 1>(one, e0 + e, sb, c, hw);
+    store<T, 1>(out, e, one);
+  }
+}
+
 // where a launch writes: the layout of z and out
 enum Layout { CHANNELS_LAST = 0, PLANAR_NCHW = 1, PHASES = 2 };
 
 // n: z's elements; c the output's channels; hw its H*W; wz, hz the phase
 // tensor's columns and rows (W+1, H+1)
 struct Shape {
-  unsigned n, c, hw, wz, hz;
+  unsigned long long n;
+  unsigned c, hw, wz, hz;
 };
+
+constexpr unsigned long long MAX_32 = 0x7fffffffULL;  // the 32-bit kernel's elements
+constexpr unsigned MAX_SPAN = NT * UNROLL * 8;      // a wide block's elements, at most
 
 template <typename T, int ACT, bool PLANAR, bool SUBPIXEL, int V>
 cudaError_t launch(const void* z, const float* bias, void* out, Shape s, cudaStream_t stream) {
+  const unsigned n = static_cast<unsigned>(s.n);
   const unsigned per_block = NT * UNROLL;
-  const unsigned blocks = s.n / V < per_block ? 1 : (s.n / V + per_block - 1) / per_block;
+  const unsigned blocks = n / V < per_block ? 1 : (n / V + per_block - 1) / per_block;
   const Phases g{divider(SUBPIXEL ? s.c / V : 1), divider(s.wz), divider(s.hz)};
   bias_act_kernel<T, ACT, PLANAR, SUBPIXEL, V><<<blocks, NT, s.c * sizeof(float), stream>>>(
-      static_cast<const T*>(z), bias, static_cast<T*>(out), s.n, s.c, s.hw, g);
+      static_cast<const T*>(z), bias, static_cast<T*>(out), n, s.c, s.hw, g);
+  return cudaGetLastError();
+}
+
+template <typename T, int ACT, bool PLANAR, int V>
+cudaError_t launch_wide(const void* z, const float* bias, void* out, Shape s,
+                        cudaStream_t stream) {
+  constexpr unsigned long long span = NT * UNROLL * V;
+  const unsigned long long blocks = (s.n + span - 1) / span;
+  if (blocks > MAX_32) return cudaErrorInvalidValue;
+  bias_act_kernel_wide<T, ACT, PLANAR, V>
+      <<<static_cast<unsigned>(blocks), NT, s.c * sizeof(float), stream>>>(
+          static_cast<const T*>(z), bias, static_cast<T*>(out), s.n, s.c, s.hw);
   return cudaGetLastError();
 }
 
@@ -278,6 +350,13 @@ template <typename T, int ACT>
 cudaError_t launch_layout(const void* z, const float* bias, void* out, int layout, Shape s,
                           cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
+  if (s.n > MAX_32) {  // chosen by size: every smaller tensor takes the 32-bit kernel
+    switch (layout) {
+      case CHANNELS_LAST: return launch_wide<T, ACT, false, V>(z, bias, out, s, stream);
+      case PLANAR_NCHW: return launch_wide<T, ACT, true, V>(z, bias, out, s, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (layout) {
     case CHANNELS_LAST: return launch<T, ACT, false, false, V>(z, bias, out, s, stream);
     case PLANAR_NCHW: return launch<T, ACT, true, false, V>(z, bias, out, s, stream);
@@ -319,17 +398,23 @@ bool aligned(const void* a) { return reinterpret_cast<uintptr_t>(a) % 16 == 0; }
 // (0 = launched). z and out: n elements of a dense (N, C, H, W) tensor,
 // channels-last (planar 0) or contiguous NCHW (planar 1, hw = H*W); out may
 // be z. dtype 0 is fp32, 1 bf16; act as the enum above; bias c fp32 values.
-// The caller checks shapes, strides and devices; n outside 1..2**31-1, c
-// outside 1..12288, hw < 1, z or out not 16 B aligned, or an unknown dtype
-// or act return cudaErrorInvalidValue without launching.
+// n over 2**31 - 1 takes the wide instantiation. The caller checks shapes,
+// strides and devices; n < 1, c outside 1..12288, hw outside 1..2**31-1,
+// an NCHW z over 2**31 - 1 elements whose C*H*W passes 2**32 less a
+// block's span, z or out not 16 B aligned, or an unknown dtype or act
+// return cudaErrorInvalidValue without launching.
 extern "C" int bias_act(const void* z, const float* bias, void* out, int dtype, int act,
                         int planar, long long n, int c, long long hw, void* stream) {
-  if (n < 1 || n > 0x7fffffffLL || c < 1 || c > MAX_C || hw < 1 || hw > n || !aligned(z) ||
+  if (n < 1 || c < 1 || c > MAX_C || hw < 1 || hw > n || hw > 0x7fffffffLL || !aligned(z) ||
       !aligned(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Shape s{static_cast<unsigned>(n), static_cast<unsigned>(c), static_cast<unsigned>(hw),
-                1, 1};
+  if (planar && static_cast<unsigned long long>(n) > MAX_32 &&
+      static_cast<unsigned long long>(c) * hw > 0xffffffffULL - MAX_SPAN) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Shape s{static_cast<unsigned long long>(n), static_cast<unsigned>(c),
+                static_cast<unsigned>(hw), 1, 1};
   return static_cast<int>(
       launch_dtype(dtype, act, z, bias, out, planar ? PLANAR_NCHW : CHANNELS_LAST, s, stream));
 }
@@ -351,7 +436,7 @@ extern "C" int bias_act_subpixel(const void* z, const float* bias, void* out, in
   if (n % image != 0 || nz > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Shape s{static_cast<unsigned>(nz), static_cast<unsigned>(c), 1,
+  const Shape s{static_cast<unsigned long long>(nz), static_cast<unsigned>(c), 1,
                 static_cast<unsigned>(w + 1), static_cast<unsigned>(h + 1)};
   return static_cast<int>(launch_dtype(dtype, act, z, bias, out, PHASES, s, stream));
 }

@@ -66,6 +66,27 @@
 // k*k floats apart, are staged element by element through their strides,
 // so a planar (N, k*k, H, W) view still works, at a cost. The output is
 // written contiguous NHWC (N, H, W, C).
+//
+// k = 21 (the KPCN's head) takes a form of its own, kpn_apply_kernel_warp.
+// Its weight rows do not fit the staging above (a 32-pixel row is 441 x 32
+// floats, 56 KB), and a pixel's 441 weights, 1764 B, are more than a
+// thread should hold. So a warp takes a pixel: lane l reads taps l, l + 32,
+// ... of the pixel's contiguous weights (14 loads, all in flight before
+// the first is used; each warp instruction reads 128 contiguous bytes), and
+// multiplies each by the signal at its tap from shared memory; the lanes'
+// sums meet in an xor butterfly of shuffles, C of them, and lanes 0..C-1
+// store the pixel's channels. A block of 8 warps takes a 32 x 8 tile, a
+// warp a row of it, pixel after pixel, so a warp's loads run along one
+// contiguous 56 KB stretch of the weights; the tile's halo'd signal window,
+// 28 x 52 x C floats, is staged once by stage() above with a row pitch of
+// 53: 53 = 21 (mod 32), so tap t of a row lies at bank t + const (mod 32),
+// and a warp's 32 consecutive taps hit 32 banks. Each weight is read once
+// and the weights are 99 % of the bytes (1764 of 1776 a pixel): at the
+// KPCN's 1080p plane, (4, 1136, 1976), a slot's weights are 15.8 GB and
+// 3.96e9 elements, so every offset is 64-bit. The sum of a pixel's taps is
+// each lane's taps in order, then the butterfly: not the plain version's
+// order, so it agrees with it to rounding, not bit for bit. It has no
+// backward kernel (ops/kpn_apply.py refuses k = 21 there).
 
 #include <cuda_runtime.h>
 
@@ -254,12 +275,100 @@ cudaError_t launch(const float* noisy, const float* weights, float* out, int n, 
   return launch_rows<K, C, 4>(noisy, weights, out, n, h, w, s, stream);
 }
 
+constexpr int WK = 21;                  // the warp form's kernel size
+constexpr int WK2 = WK * WK;
+constexpr int WP = WK / 2;
+constexpr int WBH = 8;                  // tile rows: a warp a row
+constexpr int WNT = 32 * WBH;           // threads a block
+constexpr int WTH = WBH + WK - 1;       // window rows, 28
+constexpr int WTW = BW + WK - 1;        // window columns, 52
+constexpr int WROWP = WTW + 1;          // window row pitch, 53 = 21 (mod 32)
+constexpr int WJ = (WK2 + 31) / 32;     // taps a lane, 14
+
+template <int C>
+__global__ void __launch_bounds__(WNT)
+kpn_apply_kernel_warp(const float* __restrict__ noisy, const float* __restrict__ weights,
+                      float* __restrict__ out, int h, int w,
+                      long long nsn, long long nsy, long long nsx, long long nsc,
+                      long long wsn, long long wst, long long wsy, long long wsx) {
+  __shared__ __align__(16) float win[C * WTH * WROWP];
+  const int n = blockIdx.z;
+  const int x0 = blockIdx.x * BW;
+  const int y0 = blockIdx.y * WBH;
+  const int tid = threadIdx.x;
+  stage<C, WNT, WTH, WTW, WROWP>(win, noisy + n * nsn, tid, y0 - WP, x0 - WP, h, w, nsy, nsx,
+                                 nsc);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int lane = tid & 31;
+  const int ry = tid >> 5;  // this warp's tile row
+  const int y = y0 + ry;
+  if (y >= h) return;
+  // tap t = lane + 32j sits at window offset (ry + t/K)*pitch + t%K + column
+  int at[WJ];
+#pragma unroll
+  for (int j = 0; j < WJ; ++j) {
+    const int t = lane + 32 * j;
+    at[j] = t < WK2 ? (ry + t / WK) * WROWP + t % WK : -1;
+  }
+  const float* wrow = weights + n * wsn + y * wsy + x0 * wsx;
+  float* orow = out + ((static_cast<long long>(n) * h + y) * w + x0) * C;
+  const int cols = min(BW, w - x0);
+  for (int px = 0; px < cols; ++px) {
+    const float* wp = wrow + px * wsx;
+    float wt[WJ];
+#pragma unroll
+    for (int j = 0; j < WJ; ++j) wt[j] = at[j] >= 0 ? __ldg(wp + (lane + 32 * j) * wst) : 0.0f;
+    float acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < WJ; ++j) {
+      if (at[j] < 0) continue;
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[c] = fmaf(wt[j], win[c * WTH * WROWP + at[j] + px], acc[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], o);
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (lane == c) orow[px * C + c] = acc[c];
+    }
+  }
+}
+
+template <int C>
+cudaError_t launch_warp(const float* noisy, const float* weights, float* out, int n, int h, int w,
+                        const long long* s, cudaStream_t stream) {
+  const dim3 grid((w + BW - 1) / BW, (h + WBH - 1) / WBH, n);
+  kpn_apply_kernel_warp<C><<<grid, WNT, 0, stream>>>(noisy, weights, out, h, w, s[0], s[1], s[2],
+                                                     s[3], s[4], s[5], s[6], s[7]);
+  return cudaGetLastError();
+}
+
+// Calls f(Int<C>) for runtime c in 1..4; cudaErrorInvalidValue for any other.
+template <typename F>
+cudaError_t dispatch_c(int c, F&& f) {
+  switch (c) {
+    case 1: return f(kpn::Int<1>{});
+    case 2: return f(kpn::Int<2>{});
+    case 3: return f(kpn::Int<3>{});
+    case 4: return f(kpn::Int<4>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() after the launch
-// (0 = launched), its tiles chosen by tile_rows(). The caller checks
-// shapes, k and c; k other than 3 or 5 and c outside 1..4 return
-// cudaErrorInvalidValue without launching.
+// (0 = launched), its tiles chosen by tile_rows() (k = 21: the warp form).
+// The caller checks shapes, k and c; k other than 3, 5 or 21 and c outside
+// 1..4 return cudaErrorInvalidValue without launching.
 extern "C" int kpn_apply_f32(const float* noisy, const float* weights, float* out,
                              int n, int h, int w, int c, int k,
                              long long nsn, long long nsy, long long nsx, long long nsc,
@@ -268,14 +377,20 @@ extern "C" int kpn_apply_f32(const float* noisy, const float* weights, float* ou
   if (n < 1 || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long s[8] = {nsn, nsy, nsx, nsc, wsn, wst, wsy, wsx};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k == WK) {
+    return static_cast<int>(dispatch_c(c, [&](auto cc) {
+      return launch_warp<decltype(cc)::value>(noisy, weights, out, n, h, w, s, st);
+    }));
+  }
   return static_cast<int>(dispatch(k, c, [&](auto kk, auto cc) {
     return launch<decltype(kk)::value, decltype(cc)::value>(noisy, weights, out, n, h, w, s, st);
   }));
 }
 
-// The tile rows (8 or 4) a launch of k, c over (n, h, w) takes; a negative
-// cudaError_t for k or c out of range.
+// The tile rows (8 or 4) a launch of k, c over (n, h, w) takes (k = 21:
+// the warp form's 8); a negative cudaError_t for k or c out of range.
 extern "C" int kpn_apply_tile_rows(int n, int h, int w, int c, int k) {
+  if (k == WK) return c >= 1 && c <= 4 ? WBH : -static_cast<int>(cudaErrorInvalidValue);
   int rows = 0;
   const cudaError_t err = dispatch(k, c, [&](auto kk, auto cc) {
     rows = tile_rows<decltype(kk)::value, decltype(cc)::value>(n, h, w);
@@ -284,11 +399,20 @@ extern "C" int kpn_apply_tile_rows(int n, int h, int w, int c, int k) {
   return err == cudaSuccess ? rows : -static_cast<int>(err);
 }
 
-// Resident blocks per SM of the kernel for k, c and tile rows (8 or 4),
-// from the occupancy API; a negative cudaError_t on failure.
+// Resident blocks per SM of the kernel for k, c and tile rows (8 or 4; k =
+// 21: the warp form, rows 8), from the occupancy API; a negative
+// cudaError_t on failure.
 extern "C" int kpn_apply_resident_blocks(int k, int c, int rows) {
   if (rows != 8 && rows != 4) return -static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0;
+  if (k == WK) {
+    if (rows != WBH) return -static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = dispatch_c(c, [&](auto cc) {
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kpn_apply_kernel_warp<decltype(cc)::value>, WNT, 0);
+    });
+    return err == cudaSuccess ? blocks : -static_cast<int>(err);
+  }
   const cudaError_t err = dispatch(k, c, [&](auto kk, auto cc) {
     constexpr int K = decltype(kk)::value, C = decltype(cc)::value;
     return rows == 8

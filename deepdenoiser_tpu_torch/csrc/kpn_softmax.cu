@@ -5,10 +5,10 @@
 //   norm off:  z_t = l_t
 //   w_t = exp(z_t - max_t z) / sum_t exp(z_t - max_t z)
 //
-// over the k*k taps t of every pixel, k in {3, 5}, with the arithmetic and
-// the order of operations of the plain version (ops/kpn_softmax.py,
-// softmax_plain): the mean as the sum times 1/k^2, full-precision expf,
-// sqrtf and divisions (no fast-math intrinsics).
+// over the k*k taps t of every pixel, k in {3, 5} (k = 21: the warp form
+// below), with the arithmetic and the order of operations of the plain
+// version (ops/kpn_softmax.py, softmax_plain): the mean as the sum times
+// 1/k^2, full-precision expf, sqrtf and divisions (no fast-math intrinsics).
 //
 // It replaces no TPU kernel: the JAX head (deepdenoiser_tpu/models/kpn.py)
 // leaves this chain to XLA, which fuses it. In PyTorch the chain was six
@@ -58,7 +58,24 @@
 // the same bytes. Blocks of 64 or 256 threads, two pixels a thread,
 // streaming cache hints, a register cap for 12 or 16 blocks an SM and a
 // 32 B L2 fetch granularity were each no faster.
+//
+// The k*k = 441 form (k = 21, the KPCN's head) keeps neither the row in
+// registers nor the block's rows in shared memory: 441 floats a thread and
+// 128 rows a block (226 KB) fit in neither. It takes a warp a pixel
+// (kpn_softmax_kernel_warp): lane l loads taps l, l + 32, ... of the run (14
+// of them, all in flight before the first is used; a warp instruction reads 32
+// neighbouring taps, one or two 32 B sectors of bf16 logits), the max and
+// the sum are warp shuffles (an xor butterfly: every lane ends with the same
+// bits), and lane l stores the same taps of the contiguous output row. It
+// reads the logits in place in fp32 or bf16 (the KPCN's trunk emits bf16;
+// an fp32 copy would add 15.8 GB at its 1080p plane), computes in fp32 and
+// writes fp32. At that plane the output of one slot, (4, 1136, 1976, 441),
+// has 3.96e9 elements: every offset is 64-bit, pixel indices stay 32-bit.
+// The sums are a lane's taps in order, then the butterfly: not the plain
+// version's order, so it agrees with it to rounding, not bit for bit.
+// Memory bounds it: 882 B of bf16 read and 1764 B written a pixel.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -146,6 +163,86 @@ cudaError_t launch(const float* logits, const float* tau, float* out, int npix, 
   return cudaGetLastError();
 }
 
+constexpr int WIDE_K2 = 441;        // the warp form's taps: k = 21
+constexpr int WPB = 8;              // warps (pixels) a block of the warp form
+constexpr int WJ = (WIDE_K2 + 31) / 32;  // taps a lane
+
+__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+template <typename T, bool NORM>
+__global__ void __launch_bounds__(32 * WPB)
+kpn_softmax_kernel_warp(const T* __restrict__ logits, const float* __restrict__ tau,
+                        float* __restrict__ out, int npix, int h, int w,
+                        long long sn, long long sy, long long sx) {
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * WPB + (threadIdx.x >> 5);
+  if (p >= npix) return;  // a whole warp leaves together
+  const int hw = h * w;
+  const int n = p / hw;
+  const int r = p - n * hw;
+  const int y = r / w;
+  const int x = r - y * w;
+  const T* run = logits + n * sn + y * sy + x * sx;
+  float z[WJ];
+#pragma unroll
+  for (int j = 0; j < WJ; ++j) {
+    const int t = lane + 32 * j;
+    z[j] = t < WIDE_K2 ? load_f(run + t) : 0.0f;
+  }
+  if (NORM) {
+    float ss = 0.0f;
+#pragma unroll
+    for (int j = 0; j < WJ; ++j) ss += __fmul_rn(z[j], z[j]);  // the pad taps add 0
+    const float rms = sqrtf(warp_sum(ss) * (1.0f / WIDE_K2) + 1e-8f);
+    const float scale = __ldg(tau);
+#pragma unroll
+    for (int j = 0; j < WJ; ++j) z[j] = z[j] / rms * scale;
+  }
+  float m = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+  for (int j = 0; j < WJ; ++j) {
+    if (lane + 32 * j < WIDE_K2) m = fmaxf(m, z[j]);
+  }
+  m = warp_max(m);
+  float sum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < WJ; ++j) {
+    z[j] = lane + 32 * j < WIDE_K2 ? expf(z[j] - m) : 0.0f;
+    sum += z[j];
+  }
+  sum = warp_sum(sum);
+  float* row = out + static_cast<long long>(p) * WIDE_K2;
+#pragma unroll
+  for (int j = 0; j < WJ; ++j) {
+    const int t = lane + 32 * j;
+    if (t < WIDE_K2) row[t] = z[j] / sum;
+  }
+}
+
+template <typename T, bool NORM>
+cudaError_t launch_warp(const T* logits, const float* tau, float* out, int npix, int h, int w,
+                        long long sn, long long sy, long long sx, cudaStream_t stream) {
+  const int blocks = (npix + WPB - 1) / WPB;
+  kpn_softmax_kernel_warp<T, NORM><<<blocks, 32 * WPB, 0, stream>>>(logits, tau, out, npix, h, w,
+                                                                    sn, sy, sx);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() after the launch
@@ -153,14 +250,14 @@ cudaError_t launch(const float* logits, const float* tau, float* out, int npix, 
 // sn, sy, sx and contiguous taps; `out` a contiguous (n, h, w, k2) tensor,
 // 16 B aligned. `tau` null: no norm; else it points to the norm's
 // temperature, read on the device. The caller checks shapes and strides and
-// that n*h*w*k2 fits in an int; k2 other than 9 or 25, or an empty launch,
-// return cudaErrorInvalidValue without launching.
+// that n*h*w fits in an int; k2 other than 9, 25 or 441, or an empty
+// launch, return cudaErrorInvalidValue without launching.
 extern "C" int kpn_softmax_f32(const float* logits, const float* tau, float* out, int n, int h,
                                int w, int k2, long long sn, long long sy, long long sx,
                                void* stream) {
   if (n < 1 || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long npix = static_cast<long long>(n) * h * w;
-  if (npix * k2 > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (npix > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int np = static_cast<int>(npix);
   if (k2 == 25) {
@@ -171,5 +268,26 @@ extern "C" int kpn_softmax_f32(const float* logits, const float* tau, float* out
     return static_cast<int>(tau ? launch<9, true>(logits, tau, out, np, h, w, sn, sy, sx, st)
                                 : launch<9, false>(logits, tau, out, np, h, w, sn, sy, sx, st));
   }
+  if (k2 == WIDE_K2) {
+    return static_cast<int>(
+        tau ? launch_warp<float, true>(logits, tau, out, np, h, w, sn, sy, sx, st)
+            : launch_warp<float, false>(logits, tau, out, np, h, w, sn, sy, sx, st));
+  }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same for bf16 logits (a uint16 array), k2 = 441 only: the warp form,
+// which converts each tap to fp32 as it loads it.
+extern "C" int kpn_softmax_bf16(const void* logits, const float* tau, float* out, int n, int h,
+                                int w, int k2, long long sn, long long sy, long long sx,
+                                void* stream) {
+  if (n < 1 || h < 1 || w < 1 || k2 != WIDE_K2) return static_cast<int>(cudaErrorInvalidValue);
+  const long long npix = static_cast<long long>(n) * h * w;
+  if (npix > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int np = static_cast<int>(npix);
+  const auto* lg = static_cast<const __nv_bfloat16*>(logits);
+  return static_cast<int>(
+      tau ? launch_warp<__nv_bfloat16, true>(lg, tau, out, np, h, w, sn, sy, sx, st)
+          : launch_warp<__nv_bfloat16, false>(lg, tau, out, np, h, w, sn, sy, sx, st));
 }

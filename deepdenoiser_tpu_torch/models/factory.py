@@ -3,8 +3,10 @@ spatial multiple).
 
 The port of deepdenoiser_tpu/models/factory.py. `ModelConfig` keeps the
 JAX field names, so a config JSON loads in both packages. Backbones: the
-UNet (stride-1 or space-to-depth stem) and the tiramisu, either one alone
-or under the multi-scale wrapper (n_scales > 1). Heads: the KPN head in
+UNet (stride-1 or space-to-depth stem), the tiramisu, and the KPCN of Bako
+et al. (models/kpcn.py, the port's own: base_width is its hidden width,
+depth its number of 5x5 convs), each alone or under the multi-scale
+wrapper (n_scales > 1). Heads: the KPN head in
 joint mode (24 output channels, 8 slots) and in group or rgb mode (the
 leading 3*kpn_slots input channels are the signal), or the residual
 branch.
@@ -21,6 +23,7 @@ from torch import nn
 
 from deepdenoiser_tpu_torch import tracing
 from deepdenoiser_tpu_torch.models import kpn, layers, multiscale
+from deepdenoiser_tpu_torch.models.kpcn import KPCN, KPCNSpec
 from deepdenoiser_tpu_torch.models.tiramisu import Tiramisu, TiramisuSpec
 from deepdenoiser_tpu_torch.models.unet import UNet, UNetSpec
 
@@ -33,7 +36,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class ModelConfig:
     """Architecture spec (same fields as the JAX package's ModelConfig)."""
 
-    backbone: str = "unet"  # 'unet' | 'tiramisu'
+    backbone: str = "unet"  # 'unet' | 'tiramisu' | 'kpcn'
     in_channels: int = 14
     out_channels: int = 6
     n_scales: int = 1  # >1 enables multi-scale prediction
@@ -68,8 +71,8 @@ class DenoiserModel(nn.Module):
     residual.
 
     forward(x) takes the encoded feature stack, NHWC fp32, and returns
-    NHWC fp32. Child names follow the Flax tree: the backbone is UNet_0 or
-    Tiramisu_0 directly under the model, with or without the multi-scale
+    NHWC fp32. Child names follow the Flax tree: the backbone is UNet_0,
+    Tiramisu_0 or KPCN_0 directly under the model, with or without the multi-scale
     wrapper or the head around it, and the head's temperature is
     KernelPredictionHead_0.kernel_temp; so release weights map by path.
     """
@@ -79,10 +82,8 @@ class DenoiserModel(nn.Module):
         self.cfg = cfg
         out_ch = cfg.kpn_slots * cfg.kpn_size**2 if cfg.kernel_prediction else cfg.out_channels
         spec = _backbone_spec(cfg)
-        if cfg.backbone == "unet":
-            self.UNet_0 = UNet(spec, cfg.in_channels, out_ch, dtype=cfg.dtype)
-        else:
-            self.Tiramisu_0 = Tiramisu(spec, cfg.in_channels, out_ch, dtype=cfg.dtype)
+        name, module = BACKBONES[cfg.backbone]
+        setattr(self, name, module(spec, cfg.in_channels, out_ch, dtype=cfg.dtype))
         if cfg.kernel_prediction:
             if cfg.out_channels == 24 and 3 * cfg.kpn_slots != cfg.out_channels:
                 raise ValueError(
@@ -97,7 +98,7 @@ class DenoiserModel(nn.Module):
         """The network under the head: the backbone, or its multi-scale
         wrapper (which owns no parameter and is not a registered child)."""
         cfg = self.cfg
-        backbone = self.UNet_0 if cfg.backbone == "unet" else self.Tiramisu_0
+        backbone = getattr(self, BACKBONES[cfg.backbone][0])
         return multiscale.MultiScale(backbone, cfg.n_scales) if cfg.n_scales > 1 else backbone
 
     def forward(self, x: Tensor, return_scales: bool = False) -> Union[Tensor, List[Tensor]]:
@@ -136,6 +137,11 @@ class DenoiserModel(nn.Module):
             return out
 
 
+# each backbone's child name under the model (its Flax scope) and module
+BACKBONES = {"unet": ("UNet_0", UNet), "tiramisu": ("Tiramisu_0", Tiramisu),
+             "kpcn": ("KPCN_0", KPCN)}
+
+
 def _slice_signal(cfg: ModelConfig, x: Tensor) -> Tensor:
     """Noisy encoded signal channels of x matching the output channels,
     gathered from contiguous runs."""
@@ -164,7 +170,7 @@ def signal_indices(cfg: ModelConfig) -> Tuple[int, ...]:
     )
 
 
-def _backbone_spec(cfg: ModelConfig) -> Union[UNetSpec, TiramisuSpec]:
+def _backbone_spec(cfg: ModelConfig) -> Union[UNetSpec, TiramisuSpec, KPCNSpec]:
     if cfg.backbone == "unet":
         return UNetSpec(
             base_width=cfg.base_width, depth=cfg.depth,
@@ -177,6 +183,8 @@ def _backbone_spec(cfg: ModelConfig) -> Union[UNetSpec, TiramisuSpec]:
             depth=cfg.depth, act=cfg.act, stem_stride=cfg.stem_stride,
             up_compress=cfg.up_compress, layers_top=cfg.layers_top,
         )
+    if cfg.backbone == "kpcn":
+        return KPCNSpec(width=cfg.base_width, n_convs=cfg.depth, act=cfg.act)
     raise ValueError(f"unknown backbone {cfg.backbone!r}")
 
 
@@ -216,7 +224,8 @@ def build_model(cfg: ModelConfig) -> DenoiserModel:
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None) -> DenoiserModel:
     """A model initialised as the JAX package's `init_params` initialises
     its Flax tree: every conv kernel lecun-normal (layers.lecun_normal_),
-    every bias zero, the backbone's 1x1 head zero when the model predicts a
+    every bias zero, the backbone's output conv (the UNet's and tiramisu's
+    1x1 head, the KPCN's last conv) zero when the model predicts a
     residual without a KPN head (`head_zero_init`, so it starts as the
     identity), the KPN temperatures at t0. Draws come from `generator`, in
     the order the modules are registered; jax.random's bits are not
@@ -228,8 +237,8 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None) ->
                 layers.lecun_normal_(mod.weight, generator)
                 mod.bias.zero_()
         if cfg.predict_residual and not cfg.kernel_prediction:
-            backbone = model.UNet_0 if cfg.backbone == "unet" else model.Tiramisu_0
-            backbone.Conv_0.weight.zero_()
+            backbone = getattr(model, BACKBONES[cfg.backbone][0])
+            (backbone.head if cfg.backbone == "kpcn" else backbone.Conv_0).weight.zero_()
         if cfg.kernel_prediction and cfg.kpn_logit_norm:
             head = model.KernelPredictionHead_0
             head.kernel_temp.fill_(

@@ -13,6 +13,9 @@ kernels for tensors on the card and runs these plain versions for tensors
 on the CPU. Each slot's RMS norm, temperature and softmax go through
 ops/kpn_softmax.py's autograd function in the same way: one CUDA launch a
 slot on the card, its plain version on the CPU.
+
+`logit_bytes` counts the bytes of logits the head reads, from shapes at
+their dtype (every forward, every device; `reset_counts()` zeroes it).
 """
 
 from __future__ import annotations
@@ -28,6 +31,14 @@ from deepdenoiser_tpu_torch import tracing
 from deepdenoiser_tpu_torch.ops import kpn_apply, kpn_softmax
 
 Tensor = torch.Tensor
+
+# bytes of logits the head has read since the last reset (a plain count)
+logit_bytes = 0
+
+
+def reset_counts() -> None:
+    global logit_bytes
+    logit_bytes = 0
 
 
 def apply_per_pixel_kernels(noisy: Tensor, weights: Tensor, kernel_size: int) -> Tensor:
@@ -100,8 +111,9 @@ class KernelPredictionHead(nn.Module):
             self.kernel_temp = nn.Parameter(torch.full((n_slots,), t0))
 
     def forward(self, feats: Tensor, signal: Tensor) -> Tensor:
-        """feats (N,H,W,n_slots*k²) logits, signal (N,H,W,3*n_slots)
-        -> (N,H,W,3*n_slots) fp32."""
+        """feats (N,H,W,n_slots*k²) logits, fp32 or the backbone's compute
+        dtype, signal (N,H,W,3*n_slots) -> (N,H,W,3*n_slots) fp32."""
+        global logit_bytes
         k2 = self.kernel_size**2
         if feats.shape[-1] != self.n_slots * k2:
             raise ValueError(f"backbone must emit {self.n_slots * k2} channels, got {feats.shape[-1]}")
@@ -110,18 +122,26 @@ class KernelPredictionHead(nn.Module):
         taus = self.TEMP_MAX * torch.sigmoid(self.kernel_temp.float()) if self.logit_norm else None
         outs = []
         for s in range(self.n_slots):
-            # the slot's logits as the JAX head takes them, (N,H,W,k²) fp32
-            # with the taps last: a strided slice of feats, which the norm
-            # and softmax read in place (τ stays on the device). The weights
-            # are contiguous (N,H,W,k²), the layout the filter-apply kernel
+            # the slot's logits as the JAX head takes them, (N,H,W,k²) with
+            # the taps last: a strided slice of feats, which the norm and
+            # softmax read in place (τ stays on the device), in fp32 or, at
+            # k = 21, in the backbone's bf16 (kpn_softmax.reads_in_place);
+            # other logits are cast to fp32 first. The weights are fp32,
+            # contiguous (N,H,W,k²), the layout the filter-apply kernel
             # stages in 16-byte copies and the backward kernel writes the
             # weight gradient in; nothing is transposed or gathered either
-            # way.
-            logits = feats[..., s * k2 : (s + 1) * k2].float()
+            # way. A slot's weights are dropped before the next slot's are
+            # made (at k = 21 a slot's are 15.8 GB at the 1080p group plane).
+            logits = feats[..., s * k2 : (s + 1) * k2]
+            logit_bytes += logits.numel() * logits.element_size()
+            if not kpn_softmax.reads_in_place(logits):
+                logits = logits.float()
             weights = kpn_softmax.KpnSoftmax.apply(logits, None if taus is None else taus[s])
+            del logits
             slot = signal[..., 3 * s : 3 * (s + 1)].float()
             with tracing.span("k1"):
                 outs.append(self.filter_apply(slot, weights, self.kernel_size))
+            del weights
         return torch.cat(outs, dim=-1)
 
 

@@ -136,7 +136,10 @@ class ConvBlock(nn.Module):
         # Flax scope name, so release weights map by path (weights_io.py).
         self.Conv_0 = nn.Conv2d(in_channels, features, kernel)
 
-    def forward(self, x: Union[Tensor, Sequence[Tensor]]) -> Tensor:
+    def forward(self, x: Union[Tensor, Sequence[Tensor]], weight: Optional[Tensor] = None,
+                bias: Optional[Tensor] = None) -> Tensor:
+        """`weight` (OIHW, in the compute dtype) and `bias`, where given,
+        stand in for the conv's own: the KPCN passes zero-padded copies."""
         if not isinstance(x, Tensor):
             x = torch.cat(tuple(x), dim=1)
         x = x.to(self.dtype)
@@ -147,8 +150,9 @@ class ConvBlock(nn.Module):
             (t, b), (l, r) = (_same_pads(x.shape[2], k, s), _same_pads(x.shape[3], k, s))
             x = F.pad(x, (l, r, t, b)).contiguous(memory_format=torch.channels_last)
             padding = 0
-        y = F.conv2d(x, self.Conv_0.weight.to(self.dtype), stride=s, padding=padding)
-        return bias_act.bias_act(y, self.Conv_0.bias, self.act)
+        w = self.Conv_0.weight.to(self.dtype) if weight is None else weight
+        y = F.conv2d(x, w, stride=s, padding=padding)
+        return bias_act.bias_act(y, self.Conv_0.bias if bias is None else bias, self.act)
 
 
 class ConvStack(nn.Module):

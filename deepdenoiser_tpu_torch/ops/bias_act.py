@@ -20,7 +20,10 @@ reads the output alone, as PyTorch's own backward of those activations
 does, and sums the bias gradient; for elu, gelu and silu z is saved and
 the backward recomputes `bias_act_plain` and differentiates it. Either way
 the gradients are the plain chain's. The arguments are checked on every
-device alike; z must be 16-byte aligned, as every fresh allocation is.
+device alike; z must be 16-byte aligned, as every fresh allocation is. A z
+of more than 2**31 - 1 elements (MAX_ELEMENTS; the KPCN's logits) takes
+the kernel's wide instantiation, with 64-bit offsets; any smaller z the
+32-bit one.
 
 `bias_act_subpixel(z, b, act)` is the epilogue of the decoder's resize-conv
 (models/layers.py, UpSample), whose conv runs on the coarse grid: z is the
@@ -60,7 +63,7 @@ ACTIVATIONS: dict[str, Callable[[Tensor], Tensor]] = {
 ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2, "elu": 3, "gelu": 4, "silu": 5}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHANNELS = 12288  # the staged bias fills at most 48 KB of shared memory
-MAX_ELEMENTS = 0x7FFFFFFF
+MAX_ELEMENTS = 0x7FFFFFFF  # the 32-bit instantiation's; the sub-pixel epilogue's limit
 
 # CUDA launches of the kernel since the last reset (a plain count; the
 # wrapper adds one where it launches and nowhere else), and those of them
@@ -110,8 +113,6 @@ def _check(z: Tensor, b: Tensor, act: str, phases: int = 1) -> bool:
         raise ValueError(f"bias_act: b must be contiguous, got stride {b.stride()}")
     if b.shape[0] > MAX_CHANNELS:
         raise ValueError(f"bias_act: {b.shape[0]} channels, at most {MAX_CHANNELS}")
-    if z.numel() > MAX_ELEMENTS:
-        raise ValueError(f"bias_act: {z.numel()} elements, at most 2**31 - 1")
     if z.device != b.device:
         raise ValueError(f"bias_act: z on {z.device}, b on {b.device}; both must be on one device")
     if z.data_ptr() % 16:
@@ -262,6 +263,8 @@ def bias_act_subpixel_cuda(z: Tensor, b: Tensor, act: str) -> Tensor:
                          f"{z.stride()} for shape {tuple(z.shape)}")
     if z.device.type != "cuda":
         raise ValueError(f"bias_act_subpixel: z on {z.device}; the kernel takes CUDA tensors")
+    if max(z.numel(), 4 * n * f * h * w) > MAX_ELEMENTS:
+        raise ValueError(f"bias_act_subpixel: {z.numel()} elements, at most 2**31 - 1")
     out = torch.empty((n, f, 2 * h, 2 * w), dtype=z.dtype, device=z.device,
                       memory_format=torch.channels_last)
     if out.numel() == 0:

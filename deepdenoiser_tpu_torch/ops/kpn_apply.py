@@ -6,7 +6,9 @@ apply_per_pixel_kernels_pallas, the TPU kernel the joint kpn-hq frame
 launches once per slot (8 per frame); the backward replaces that
 function's custom_vjp backward, _kpn_pallas_bwd. All three kernels are
 memory-bound (124 B against 150 FLOP per pixel at k=5, C=3); their design
-notes are in the CUDA sources.
+notes are in the CUDA sources. The forward also takes k = 21 (the KPCN's
+head, through a form of its own); the backward takes k in {3, 5} only and
+refuses 21 with a ValueError.
 
 `apply_per_pixel_kernels(noisy, weights, k)` keeps the JAX signature:
 noisy (N,H,W,C) and per-pixel softmaxed weights (N,H,W,k²), both fp32,
@@ -33,7 +35,8 @@ from deepdenoiser_tpu_torch.ops import _build
 Tensor = torch.Tensor
 
 MAX_CHANNELS = 4  # the kernels' per-thread accumulator count
-KERNEL_SIZES = (3, 5)
+KERNEL_SIZES = (3, 5, 21)  # the forward's; 21 is its warp form (the KPCN's head)
+BWD_KERNEL_SIZES = (3, 5)  # the backward kernels'
 
 # Launches of each CUDA kernel since the last reset (plain counts; each
 # wrapper adds one where it launches and nowhere else).
@@ -133,12 +136,15 @@ class KpnApply(torch.autograd.Function):
         return d_noisy, d_w, None
 
 
-def _check(what: str, tensors: dict, kernel_size: int) -> tuple:
-    """Device, dtype, shape and stride checks shared by the three kernels;
-    returns (n, h, w, c) from the (N,H,W,C) tensor named first."""
+def _check(what: str, tensors: dict, kernel_size: int, sizes: tuple = KERNEL_SIZES) -> tuple:
+    """Device, dtype, shape and stride checks shared by the three kernels
+    (`sizes`: the kernel sizes the entry takes); returns (n, h, w, c) from
+    the (N,H,W,C) tensor named first."""
     k = kernel_size
-    if k not in KERNEL_SIZES:
-        raise ValueError(f"{what}: kernel_size {k} not in {KERNEL_SIZES}")
+    if k not in sizes:
+        raise ValueError(f"{what}: kernel_size {k} not in {sizes}"
+                         + (" (the forward's warp form has no backward kernel)"
+                            if k in KERNEL_SIZES else ""))
     (_, ref), *rest = tensors.items()
     if ref.device.type != "cuda" or any(t.device != ref.device for t in tensors.values()):
         devs = ", ".join(f"{name} on {t.device}" for name, t in tensors.items())
@@ -199,7 +205,7 @@ def bwd_weights_cuda(noisy: Tensor, g: Tensor, kernel_size: int) -> Tensor:
     synchronise."""
     global bwd_weights_launches
     k = kernel_size
-    n, h, w, c = _check("kpn_apply_bwd_weights", {"noisy": noisy, "g": g}, k)
+    n, h, w, c = _check("kpn_apply_bwd_weights", {"noisy": noisy, "g": g}, k, BWD_KERNEL_SIZES)
     dw = torch.empty((n, h, w, k * k), dtype=torch.float32, device=noisy.device)
     if dw.numel() == 0:
         return dw
@@ -215,7 +221,7 @@ def bwd_noisy_cuda(g: Tensor, weights: Tensor, kernel_size: int) -> Tensor:
     synchronise."""
     global bwd_noisy_launches
     k = kernel_size
-    n, h, w, c = _check("kpn_apply_bwd_noisy", {"g": g, "weights": weights}, k)
+    n, h, w, c = _check("kpn_apply_bwd_noisy", {"g": g, "weights": weights}, k, BWD_KERNEL_SIZES)
     dn = torch.empty((n, h, w, c), dtype=torch.float32, device=g.device)
     if dn.numel() == 0:
         return dn

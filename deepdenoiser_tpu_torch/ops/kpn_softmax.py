@@ -13,14 +13,17 @@ the kernel does the same for the port in one pass over the slot's logits
 slot's (N,H,W,k²) logits, a view with the taps contiguous (the head's
 slice of the backbone's output, its pixels n_slots·k² floats apart), and
 the slot's temperature, a 0-d tensor (the head passes the view taus[s]),
-or None, and returns the contiguous (N,H,W,k²) weights that the filter
-apply (ops/kpn_apply.py) takes.
-Tensors on the CPU take `softmax_plain` and count no launch; tensors on
-the card launch the kernel or raise — there is no fallback. τ is read on
-the card, through a pointer: no host sync. The backward recomputes
-`softmax_plain` on the saved inputs and differentiates it, so the
-gradients for the logits and τ are those of the plain chain (τ's flows
-back through the head's view into the temperature vector).
+or None, and returns the contiguous (N,H,W,k²) fp32 weights that the
+filter apply (ops/kpn_apply.py) takes. The logits are fp32; at k² = 441
+(k = 21, the KPCN's head) they may be bf16 too, read in place and computed
+in fp32 (`reads_in_place`). An output may pass 2**31 elements (offsets are
+64-bit); its pixels may not.
+Tensors on the CPU take `softmax_plain` (bf16 logits in fp32) and count
+no launch; tensors on the card launch the kernel or raise — there is no
+fallback. τ is read on the card, through a pointer: no host sync. The
+backward recomputes `softmax_plain` on the saved inputs and differentiates
+it, so the gradients for the logits and τ are those of the plain chain
+(τ's flows back through the head's view into the temperature vector).
 """
 
 from __future__ import annotations
@@ -34,14 +37,16 @@ from deepdenoiser_tpu_torch.ops import _build
 
 Tensor = torch.Tensor
 
-TAPS = (9, 25)  # k² for k in {3, 5}
+TAPS = (9, 25, 441)  # k² for k in {3, 5, 21}
+BF16_TAPS = (441,)  # where the kernel reads bf16 logits too
 RMS_EPS = 1e-8
+MAX_PIXELS = 0x7FFFFFFF  # pixel indices are 32-bit; element offsets 64-bit
 
 # CUDA launches of the kernel since the last reset (a plain count; the
 # wrapper adds one where it launches and nowhere else).
 launches = 0
 
-_fn = None
+_fns: dict = {}
 
 
 def reset_launches() -> None:
@@ -58,6 +63,18 @@ def softmax_plain(logits: Tensor, tau: Optional[Tensor]) -> Tensor:
     return torch.softmax(logits, dim=-1)
 
 
+def _widened(logits: Tensor) -> Tensor:
+    """bf16 logits as fp32, the kernel's arithmetic; others as they are."""
+    return logits.float() if logits.dtype == torch.bfloat16 else logits
+
+
+def reads_in_place(logits: Tensor) -> bool:
+    """Whether the kernel reads these logits as they are: fp32, or bf16 at
+    k² in BF16_TAPS. Others are cast to fp32 first (the head does so)."""
+    return logits.dtype == torch.float32 or (
+        logits.dtype == torch.bfloat16 and logits.dim() > 0 and logits.shape[-1] in BF16_TAPS)
+
+
 class KpnSoftmax(torch.autograd.Function):
     """The norm and softmax of one slot; the backward is the plain chain's."""
 
@@ -65,7 +82,7 @@ class KpnSoftmax(torch.autograd.Function):
     def forward(ctx, logits: Tensor, tau: Optional[Tensor]) -> Tensor:
         ctx.save_for_backward(logits, tau)
         if all(t.device.type == "cpu" for t in (logits, tau) if t is not None):
-            return softmax_plain(logits, tau)
+            return softmax_plain(_widened(logits), tau)
         return softmax_cuda(logits, tau)
 
     @staticmethod
@@ -75,7 +92,7 @@ class KpnSoftmax(torch.autograd.Function):
         with torch.enable_grad():
             l = logits.detach().requires_grad_(need_l)
             t = tau.detach().requires_grad_(need_t) if tau is not None else None
-            w = softmax_plain(l, t)
+            w = softmax_plain(_widened(l), t)
             wanted = [x for x, need in ((l, need_l), (t, need_t)) if need]
             grads = iter(torch.autograd.grad(w, wanted, g))
         return (next(grads) if need_l else None), (next(grads) if need_t else None)
@@ -86,8 +103,9 @@ def _check(logits: Tensor, tau: Optional[Tensor]) -> tuple:
     device; returns (n, h, w, k²)."""
     tensors = {"logits": logits} if tau is None else {"logits": logits, "tau": tau}
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"kpn_softmax: fp32 only, {name} is {t.dtype}")
+        if t.dtype != torch.float32 and not (name == "logits" and reads_in_place(t)):
+            raise TypeError(f"kpn_softmax: fp32 only (bf16 logits at k² in {BF16_TAPS}), "
+                            f"{name} is {t.dtype}")
     if logits.dim() != 4 or logits.shape[-1] not in TAPS:
         raise ValueError(f"kpn_softmax: logits must be (N,H,W,k²), k² in {TAPS}, "
                          f"got {tuple(logits.shape)}")
@@ -96,8 +114,9 @@ def _check(logits: Tensor, tau: Optional[Tensor]) -> tuple:
                          f"got strides {logits.stride()}")
     if min(logits.stride()) < 0:
         raise ValueError("kpn_softmax: logits has negative strides")
-    if logits.numel() > 0x7FFFFFFF:
-        raise ValueError(f"kpn_softmax: {logits.numel()} elements, at most 2**31 - 1")
+    if logits.numel() // logits.shape[-1] > MAX_PIXELS:
+        raise ValueError(f"kpn_softmax: {logits.numel() // logits.shape[-1]} pixels, "
+                         "at most 2**31 - 1")
     if tau is not None and tau.dim() != 0:
         raise ValueError(f"kpn_softmax: tau must be a 0-d tensor, got shape {tuple(tau.shape)}")
     if logits.device.type != "cuda" or any(t.device != logits.device for t in tensors.values()):
@@ -106,15 +125,15 @@ def _check(logits: Tensor, tau: Optional[Tensor]) -> tuple:
     return tuple(logits.shape)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("kpn_softmax").kpn_softmax_f32
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load("kpn_softmax"), name)
         fn.argtypes = ([ctypes.c_void_p] * 3
                        + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def softmax_cuda(logits: Tensor, tau: Optional[Tensor]) -> Tensor:
@@ -127,8 +146,9 @@ def softmax_cuda(logits: Tensor, tau: Optional[Tensor]) -> Tensor:
         return out
     with torch.cuda.device(logits.device):
         stream = torch.cuda.current_stream(logits.device).cuda_stream
-        err = _kernel()(logits.data_ptr(), None if tau is None else tau.data_ptr(),
-                        out.data_ptr(), n, h, w, k2, *logits.stride()[:3], stream)
+        entry = "kpn_softmax_f32" if logits.dtype == torch.float32 else "kpn_softmax_bf16"
+        err = _kernel(entry)(logits.data_ptr(), None if tau is None else tau.data_ptr(),
+                             out.data_ptr(), n, h, w, k2, *logits.stride()[:3], stream)
     if err != 0:
         raise RuntimeError(f"kpn_softmax: kernel launch failed with cudaError {err}")
     launches += 1

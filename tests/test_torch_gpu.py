@@ -2555,3 +2555,219 @@ def test_headline_bench_record_on_the_card(cuda, monkeypatch, bench_frames, argv
         for f in families:
             gain = obj[f"db_{f}"]
             assert math.isfinite(gain) if (model, f) == ("flagship", "mc") else gain > 0, (key, f)
+
+
+# --------------------------------------------------------------------------
+# The KPCN (models/kpcn.py): KS and K1 at k = 21, KB at its widths, and the
+# tensors over 2**31 elements that its 1080p group plane makes.
+
+KPCN_PLANE = (4, 1136, 1976)  # kpcn.1080p's network batch: 4 groups, border 28
+
+
+def _kpcn_config():
+    d = json.loads((REPO / "h100_bench" / "configs" / "kpcn.json").read_text())
+    bench = d.pop("bench")
+    return d, REPO / bench["weights"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("lead,crop", [((2, 17, 23), False), ((4, 33, 70), True), ((1, 1, 3), False)])
+def test_kpn_softmax_kernel_at_441_taps_matches_plain_version(cuda, dtype, lead, crop):
+    """The warp form: both slot views of an (N,H,W,882) output in fp32 and
+    bf16 (read in place), ragged pixel counts, a cropped view; with and
+    without the norm."""
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    feats = (3 * torch.randn((*lead, 882), generator=gen, device=cuda)).to(dtype)
+    if crop:
+        feats = feats[:, 2:-1, 1:-3, :]
+    kpn_softmax.reset_launches()
+    for s, tau in itertools.product(range(2), (None, torch.tensor(3.0, device=cuda))):
+        logits = feats[..., 441 * s: 441 * (s + 1)]
+        got = kpn_softmax.KpnSoftmax.apply(logits, tau)
+        want = kpn_softmax.softmax_plain(logits.float(), tau)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.is_contiguous() and got.shape == want.shape
+        # the same fp32 operations, sums in another order; exp carries z's rounding
+        assert bool(torch.all((got - want).abs() <= 1e-6 + 1e-4 * want.abs()))
+    assert kpn_softmax.launches == 4
+
+
+@pytest.mark.parametrize("n,h,w,c", [(2, 19, 45, 3), (4, 40, 70, 3), (1, 1, 3, 1), (3, 9, 33, 4)])
+def test_kpn_apply_kernel_at_k21_matches_plain_version(cuda, n, h, w, c):
+    """The warp form against kpn.apply_per_pixel_kernels: contiguous
+    weights, a slot view of the signal (the group input's first 6 of 14
+    channels), ragged tiles, a frame smaller than the filter."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    x = torch.rand((n, h, w, 14), generator=gen, device=cuda)
+    noisy = x[..., 3: 3 + c]
+    weights = torch.softmax(2 * torch.randn((n, h, w, 441), generator=gen, device=cuda), dim=-1)
+    kpn_apply.reset_launches()
+    got = kpn_apply.apply_per_pixel_kernels(noisy, weights, 21)
+    want = kpn.apply_per_pixel_kernels(noisy, weights, 21)
+    torch.cuda.synchronize()
+    assert kpn_apply.launches == 1 and got.shape == (n, h, w, c) and got.is_contiguous()
+    # the same products, summed as 32 lanes' partial sums and a butterfly
+    assert _within(got, want)
+    # strided weights (a planar view) take the same form through their strides
+    planar = weights.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    torch.testing.assert_close(kpn_apply.apply_cuda(noisy, planar, 21), got, rtol=0, atol=0)
+
+
+def test_kpn_apply_backward_at_k21_is_refused_on_the_card(cuda):
+    noisy = torch.rand((1, 8, 8, 3), device=cuda, requires_grad=True)
+    weights = torch.softmax(torch.randn((1, 8, 8, 441), device=cuda), -1).requires_grad_()
+    out = kpn_apply.apply_per_pixel_kernels(noisy, weights, 21)
+    with pytest.raises(ValueError, match="kernel_size 21 .*no backward kernel"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("c", [100, 882])
+@pytest.mark.parametrize("act", ["relu", "none"])
+def test_bias_act_kernel_at_the_kpcn_widths_is_the_plain_chain(cuda, c, act):
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    z = torch.randn((4, c, 37, 53), generator=gen, device=cuda).to(torch.bfloat16)
+    z = z.contiguous(memory_format=torch.channels_last)
+    b = torch.randn((c,), generator=gen, device=cuda)
+    want = bias_act.bias_act_plain(z, b, act)
+    bias_act.reset_launches()
+    got = bias_act.bias_act(z.clone(), b, act)
+    torch.cuda.synchronize()
+    assert bias_act.launches == 1 and torch.equal(got, want)
+
+
+def _big_rows(n_rows):
+    """(image, row) bands of the KPCN plane whose channels-last elements
+    cross 2**31 and 2**32 at 882 channels, and the plane's last rows."""
+    n, h, w = KPCN_PLANE
+    bands = []
+    for at in (2**31, 2**32):
+        px = at // 882
+        img, y = px // (h * w), px % (h * w) // w
+        bands.append((img, max(10, y - n_rows // 2)))
+    bands.append((n - 1, h - 10 - n_rows))
+    return bands
+
+
+def test_bias_act_kernel_over_2_31_elements(cuda):
+    """The wide instantiation on the KPCN's (4, 882, 1136, 1976) logits, in
+    place, against the plain chain on bands around the 2**31 and 2**32
+    element offsets and at the end (bit for bit: relu and none are)."""
+    n, h, w = KPCN_PLANE
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    z = torch.empty((n, 882, h, w), dtype=torch.bfloat16, device=cuda,
+                    memory_format=torch.channels_last)
+    z.normal_(generator=gen)
+    assert z.numel() > 2**32
+    b = torch.randn((882,), generator=gen, device=cuda)
+    bands = _big_rows(4)
+    before = [z[i, :, y: y + 4].clone() for i, y in bands]
+    bias_act.reset_launches()
+    out = bias_act.bias_act(z, b, "relu")
+    torch.cuda.synchronize()
+    assert out is z and bias_act.launches == 1
+    for (i, y), zb in zip(bands, before):
+        assert torch.equal(z[i, :, y: y + 4], bias_act.bias_act_plain(zb[None], b, "relu")[0])
+    del z, out
+    planar = torch.empty((n, 882, h, w), dtype=torch.bfloat16, device=cuda).normal_(generator=gen)
+    before = [planar[i, :, y: y + 4].clone() for i, y in bands]
+    bias_act.bias_act(planar, b, "none")
+    torch.cuda.synchronize()
+    for (i, y), zb in zip(bands, before):
+        assert torch.equal(planar[i, :, y: y + 4], bias_act.bias_act_plain(zb[None], b, "none")[0])
+    del planar
+    torch.cuda.empty_cache()
+
+
+def test_kpn_softmax_and_apply_over_2_31_elements(cuda):
+    """KS on slot 1 of the KPCN's bf16 (4, 1136, 1976, 882) logits, 3.96e9
+    weights out, then K1 at k = 21 over them: both against the plain
+    versions on bands around the 2**31 and 2**32 element offsets of the
+    weights and at the end (K1's plain version on the band with 10 rows of
+    context)."""
+    n, h, w = KPCN_PLANE
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    feats = torch.empty((n, h, w, 882), dtype=torch.bfloat16, device=cuda)
+    feats.normal_(generator=gen).mul_(3)
+    logits = feats[..., 441:]
+    weights = kpn_softmax.KpnSoftmax.apply(logits, None)
+    assert weights.numel() > 2**31
+    x = torch.rand((n, h, w, 14), generator=gen, device=cuda)
+    noisy = x[..., 3:6]
+    out = kpn_apply.apply_per_pixel_kernels(noisy, weights, 21)
+    torch.cuda.synchronize()
+    for i, y in [(p // (h * w), p % (h * w) // w) for p in (2**31 // 441, 2**32 // 441)] + [
+            (n - 1, h - 14)]:
+        y = min(max(y - 2, 10), h - 14)
+        want_w = kpn_softmax.softmax_plain(logits[i: i + 1, y: y + 4].float(), None)
+        got_w = weights[i: i + 1, y: y + 4]
+        assert bool(torch.all((got_w - want_w).abs() <= 1e-6 + 1e-4 * want_w.abs()))
+        lo = y - 10
+        want = kpn.apply_per_pixel_kernels(noisy[i: i + 1, lo: y + 14],
+                                           weights[i: i + 1, lo: y + 14], 21)[:, 10:14]
+        assert _within(out[i: i + 1, y: y + 4], want)
+    del feats, logits, weights, out
+    torch.cuda.empty_cache()
+
+
+def test_kpcn_frame_on_the_card_against_the_reference(cuda, fourier_1080p):
+    """kpcn at its bf16 on the benchmark's seeded weights over a 1080p frame,
+    with the fused group encode: one network call over the four groups'
+    (4, 1136, 1976) plane, 9 conv epilogues, 2 softmax and 2 K1 launches,
+    15.84 GB of bf16 logits read, a peak under 40 GiB, and every pass
+    within the cell kpcn.1080p's `rel_l2` limit of the plain float32
+    reference (h100_bench/reference/kpcn.py) in bands of the cell's rows."""
+    from h100_bench.reference import frame as ref_frame
+    from h100_bench.reference import kpcn as ref_kpcn
+    from h100_bench.reference import no_tf32
+
+    d, weights = _kpcn_config()
+    cell = json.loads((REPO / "h100_bench" / "workloads" / "kpcn.1080p.json").read_text())
+    cfg = config.from_dict(config.ExperimentConfig, d)
+    infer = dataclasses.replace(cfg.infer, use_pallas_ingest=True)
+    den, grid = pipeline.make_group_frame_denoiser(cfg.model, infer, *FRAME,
+                                                   weights_io.load_release_params(weights))
+    assert (grid.tile_h + 2 * grid.halo, grid.tile_w + 2 * grid.halo) == KPCN_PLANE[1:]
+    frame = fourier_1080p["noisy"]
+    den(frame)  # warm-up: builds and plans
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _reset_launches()
+    tiled.reset_net_calls()
+    kpn.reset_counts()
+    out = den(frame)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    _expect_launches(kpn_apply=2, kpn_softmax=2, bias_act=9, group_encode=1)
+    assert tiled.net_calls == 1
+    assert kpn.logit_bytes == 2 * 4 * 1136 * 1976 * 441 * 2
+    assert peak < 40 * 2**30, peak / 2**30
+    model, cert = d["model"], ref_kpcn.halo(d["model"])
+    halo = ref_frame.plane_halo(d["infer"], cert, 1)
+    p = ref_kpcn.to_device(ref_kpcn.load_params(weights), cuda)
+    with no_tf32():
+        want = ref_frame.denoise(lambda x: ref_kpcn.network(p, x, model), frame, "group", halo,
+                                 cert, 1, cell["check"]["band_rows"])
+    assert len(want) == 9 and out["combined"].shape == (*FRAME, 3)
+    for k, r in want.items():
+        gap = float((out[k].double() - r.double()).norm() / r.double().norm())
+        assert gap <= cell["limits"]["rel_l2"], (k, gap)
+
+
+def test_kpcn_denoise_through_the_cli_on_the_card(cuda, fourier_1080p, fourier_dir, tmp_path):
+    """`denoise --config` (kpcn.json without its bench group, the fused
+    ingest on) with the seeded weights: the frame's launches and a finite
+    1080p output."""
+    from deepdenoiser_tpu_torch import cli
+
+    d, weights = _kpcn_config()
+    d["infer"]["use_pallas_ingest"] = True
+    path = tmp_path / "kpcn.json"
+    path.write_text(json.dumps(d))
+    _reset_launches()
+    assert cli.main(["denoise", "--config", str(path), "--weights", str(weights), "--frame",
+                     str(fourier_dir), "--out", str(tmp_path / "out.exr")]) == 0
+    torch.cuda.synchronize()
+    _expect_launches(kpn_apply=2, kpn_softmax=2, bias_act=9, group_encode=1)
+    out = torch.from_numpy(exr.read_exr(tmp_path / "out.exr"))
+    assert out.shape == (*FRAME, 3) and torch.isfinite(out).all()
